@@ -1,0 +1,194 @@
+"""CLI: ``python -m ppnp_tpu_torch {predict,info} ...``
+
+The serving commands of ``python -m ppnp_tpu``, with the same flags plus
+``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
+versions of the kernels). ``predict`` prints the JSON keys of the JAX
+package's ``predict``, plus ``device`` and ``request_ms``.
+
+Flags of the JAX CLI that select what the port does not have yet are
+accepted so the same command lines parse, and raise where they matter
+(``--propagation exact|sharded``, ``--backend blocked``,
+``--x-dtype bfloat16``); ``--layout`` and the sharding flags do not
+change a CSR operator on one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+import time
+
+import numpy as np
+
+from ppnp_tpu_torch.config import RunConfig
+
+logger = logging.getLogger(__name__)
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dataset", default="cora_ml")
+    p.add_argument("--propagation", default="power",
+                   choices=["power", "exact", "sharded"])
+    p.add_argument("--alpha", type=float, default=None,
+                   help="PPR teleport (default: dataset-specific)")
+    p.add_argument("--k", "--niter", dest="niter", type=int, default=10)
+    p.add_argument("--hidden", type=int, nargs="+", default=[64])
+    p.add_argument("--drop-prob", type=float, default=0.5)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--reg-lambda", type=float, default=5e-3)
+    p.add_argument("--max-epochs", type=int, default=3000)
+    p.add_argument("--patience", type=int, default=100)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--test", action="store_true",
+                   help="evaluate on the held-out test population")
+    p.add_argument("--backend", default="xla",
+                   choices=["xla", "pallas", "blocked", "fused"],
+                   help="SpMM path: xla = plain torch gather + index_add_; "
+                        "pallas = the CSR SpMM kernel once per step; "
+                        "fused = all K steps in ONE kernel launch (the "
+                        "serving-latency path)")
+    p.add_argument("--rows-per-block", type=int, default=16384)
+    p.add_argument("--layout", default="banded",
+                   choices=["banded", "aligned", "auto"],
+                   help="TPU packing layout; the port's CSR operator has "
+                        "none (accepted for command-line compatibility)")
+    p.add_argument("--exchange", default="alltoall",
+                   choices=["alltoall", "allgather"])
+    p.add_argument("--n-shards", type=int, default=None)
+    p.add_argument("--n-slices", type=int, default=None)
+    p.add_argument("--shard-reorder", default="rcm",
+                   choices=["rcm", "none"])
+    p.add_argument("--print-interval", type=int, default=20)
+    p.add_argument("--x-dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="attribute-matrix dtype (bfloat16 not ported yet)")
+    p.add_argument("--x-format", default="auto",
+                   choices=["auto", "dense", "sparse"],
+                   help="attribute-matrix layout: sparse routes fc1 "
+                        "through the CSR SpMM kernel; auto picks sparse "
+                        "for large, very sparse X (train.prepare_attr_input)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+
+
+def _cfg_from_args(args) -> RunConfig:
+    return RunConfig(
+        dataset=args.dataset, propagation=args.propagation,
+        alpha=args.alpha, niter=args.niter, hidden=list(args.hidden),
+        drop_prob=args.drop_prob, learning_rate=args.lr,
+        reg_lambda=args.reg_lambda, max_epochs=args.max_epochs,
+        patience=args.patience, seed=args.seed, test=args.test,
+        backend=args.backend, layout=args.layout, exchange=args.exchange,
+        n_shards=args.n_shards, print_interval=args.print_interval,
+        n_slices=args.n_slices, rows_per_block=args.rows_per_block,
+        shard_reorder=args.shard_reorder,
+        checkpoint_dir=getattr(args, "checkpoint_dir", None),
+        x_dtype=args.x_dtype or "float32", x_format=args.x_format,
+    )
+
+
+def cmd_predict(args) -> int:
+    """Restore a checkpoint and emit predictions for a dataset.
+
+    Serves ``--requests`` forward passes over the loaded graph (default
+    1) and reports each one's latency on the host clock; every request
+    ends with its predictions on the host, so the time includes the
+    device's work.
+    """
+    from ppnp_tpu_torch import checkpoint as ckpt_mod
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.device import resolve_device
+    from ppnp_tpu_torch.models.appnp import MLP
+    from ppnp_tpu_torch.train import get_predictions, prepare_attr_input
+
+    cfg = _cfg_from_args(args)
+    device = resolve_device(args.device)
+    state = ckpt_mod.restore_checkpoint(args.checkpoint_dir,
+                                        step=args.step)
+    if state is None:
+        logger.error("no checkpoint found under %s", args.checkpoint_dir)
+        return 1
+    # `best_state` is the early-stopping snapshot; serve it unless --last
+    # asks for the raw end-of-training params.
+    use_best = (not args.last
+                and state.get("early_stopping", {}).get("best_epoch", -1)
+                >= 0)
+    model = MLP.from_state_dict(
+        state["best_state"] if use_best else state["params"], device=device)
+
+    graph = load_graph(cfg)
+    propagator = build_propagator(cfg, graph, device=device)
+    x = prepare_attr_input(graph, propagator, x_format=cfg.x_format,
+                           x_dtype=cfg.x_dtype)
+    n = graph.num_nodes()
+    request_ms = []
+    for _ in range(max(1, args.requests)):
+        t0 = time.perf_counter()
+        preds = get_predictions(model, x, propagator)[:n]
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+
+    labels = np.asarray(graph.labels)
+    out = {
+        "checkpoint": args.checkpoint_dir,
+        "step": int(state.get("epoch", -1)),
+        "params": "best" if use_best else "last",
+        "dataset": cfg.dataset,
+        "n": int(n),
+        "accuracy_all_nodes": float((preds == labels).mean()),
+        "device": str(device),
+        "request_ms": request_ms,
+    }
+    if args.out:
+        np.savez(args.out, predictions=preds, labels=labels)
+        out["out"] = args.out
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def cmd_info(args) -> int:
+    import torch
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    out = {
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "cuda_available": torch.cuda.is_available(),
+        "device_count": count,
+        "devices": [torch.cuda.get_device_name(i) for i in range(count)],
+    }
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    parser = argparse.ArgumentParser(prog="ppnp_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("predict",
+                       help="restore a checkpoint and emit predictions")
+    _add_common(p)
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step to restore (default: latest)")
+    p.add_argument("--last", action="store_true",
+                   help="serve end-of-training params instead of the "
+                        "early-stopping best snapshot")
+    p.add_argument("--out", default=None,
+                   help="write predictions (+labels) to this .npz path")
+    p.add_argument("--requests", type=int, default=1,
+                   help="forward passes to serve over the loaded graph")
+    p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("info", help="device/platform info")
+    p.set_defaults(fn=cmd_info)
+
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,63 @@
+"""Builders: RunConfig + graph → propagation operator.
+
+Counterpart of ``ppnp_tpu/builders.py`` for ``propagation="power"`` with
+the ``xla``, ``pallas`` and ``fused`` backends. The ``pallas``/``fused``
+operator is Â in CSR under the reverse Cuthill-McKee permutation the JAX
+builders pack with (for every ``--layout``), so packed coordinates agree.
+"""
+
+from __future__ import annotations
+
+from ppnp_tpu_torch.config import RunConfig
+from ppnp_tpu_torch.data.datasets import DATASETS, load_dataset
+from ppnp_tpu_torch.data.sparsegraph import SparseGraph
+from ppnp_tpu_torch.device import resolve_device
+from ppnp_tpu_torch.ops.normalize import calc_A_hat
+from ppnp_tpu_torch.ops.propagation import BACKENDS, PPRPowerIteration
+from ppnp_tpu_torch.ops.sparse import (csr_from_scipy, edge_list_from_scipy,
+                                       rcm_permutation)
+
+__all__ = ["load_graph", "resolve_alpha", "build_propagator"]
+
+# What the port does not have yet, and the ROADMAP.md item that brings it.
+_NOT_PORTED = {
+    "exact": "ROADMAP.md, \"Still to port\", item 3: Exact PPNP",
+    "sharded": "ROADMAP.md, \"Still to port\", item 6: Sharded / "
+               "hierarchical",
+    "blocked": "ROADMAP.md, \"Still to port\", item 5: Blocked backend",
+}
+
+
+def load_graph(cfg: RunConfig) -> SparseGraph:
+    return load_dataset(cfg.dataset).standardize()
+
+
+def resolve_alpha(cfg: RunConfig) -> float:
+    if cfg.alpha is not None:
+        return cfg.alpha
+    spec = DATASETS.get(cfg.dataset)
+    return spec.alpha if spec is not None else 0.1
+
+
+def build_propagator(cfg: RunConfig, graph: SparseGraph,
+                     device=None) -> PPRPowerIteration:
+    """The propagation operator named by the config, on ``device``
+    (default cuda; raises when CUDA is absent)."""
+    dev = resolve_device(device)
+    if cfg.propagation != "power":
+        raise NotImplementedError(
+            f"propagation={cfg.propagation!r} is not ported yet "
+            f"({_NOT_PORTED.get(cfg.propagation, 'ROADMAP.md')})")
+    if cfg.backend not in BACKENDS:
+        raise NotImplementedError(
+            f"backend={cfg.backend!r} is not ported yet "
+            f"({_NOT_PORTED.get(cfg.backend, 'ROADMAP.md')})")
+    a_hat = calc_A_hat(graph.adj_matrix)
+    edges = csr = None
+    if cfg.backend == "xla":
+        edges = edge_list_from_scipy(a_hat, device=dev)
+    else:
+        csr = csr_from_scipy(a_hat, perm=rcm_permutation(a_hat), device=dev)
+    return PPRPowerIteration(alpha=resolve_alpha(cfg), niter=cfg.niter,
+                             drop_prob=cfg.drop_prob, backend=cfg.backend,
+                             edges=edges, csr=csr)

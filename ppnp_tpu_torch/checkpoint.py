@@ -1,0 +1,61 @@
+"""Checkpoints with ``torch.save``/``torch.load``.
+
+Counterpart of ``ppnp_tpu/checkpoint.py`` (orbax there): the same
+``<directory>/step_<n>`` layout, one ``state.pt`` file per step. The
+serving path reads ``{params, best_state, epoch, early_stopping:
+{best_epoch}}``, with ``params``/``best_state`` an ``MLP.state_dict()``.
+Loading uses ``weights_only=True``: tensors, numbers, strings and dicts.
+"""
+
+from __future__ import annotations
+
+import logging
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
+
+_FILE = "state.pt"
+
+
+def save_checkpoint(directory: str, step: int, state: Dict[str, Any]
+                    ) -> None:
+    """Save a state dict under ``directory/step_<step>``."""
+    path = Path(directory).absolute() / f"step_{step}"
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save(state, path / _FILE)
+    logger.info("saved checkpoint %s", path)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    d = Path(directory)
+    if not d.exists():
+        return None
+    steps = []
+    for p in d.iterdir():
+        if p.name.startswith("step_"):
+            try:
+                steps.append(int(p.name.split("_", 1)[1]))
+            except ValueError:
+                continue
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(directory: str, step: Optional[int] = None
+                       ) -> Optional[Dict[str, Any]]:
+    """Restore the given (default: latest) step on the CPU; None if
+    absent."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            return None
+    path = Path(directory).absolute() / f"step_{step}" / _FILE
+    if not path.exists():
+        return None
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    logger.info("restored checkpoint %s", path.parent)
+    return state

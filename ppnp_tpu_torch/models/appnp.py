@@ -1,0 +1,120 @@
+"""The PPNP/APPNP model: an MLP producing local predictions, then a
+propagation operator, then log-softmax.
+
+Counterpart of ``ppnp_tpu/models/appnp.py``. The JAX package keeps its
+parameters as a list of ``(d_in, d_out)`` weight matrices; the port keeps
+them in an ``MLP`` module of bias-free ``nn.Linear`` layers, whose weights
+are ``(d_out, d_in)``. ``params_from_jax`` converts the former into the
+latter, so both packages can compute the same thing from the same
+weights.
+
+Eval mode only in this slice: ``train=True`` raises (dropout draws come
+with the training slice, ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ppnp_tpu_torch.device import resolve_device
+from ppnp_tpu_torch.ops.propagation import TRAINING_TODO
+from ppnp_tpu_torch.ops.sparse_input import SparseInput
+
+__all__ = ["MLP", "init_mlp_params", "params_from_jax", "mlp_forward",
+           "ppnp_forward", "l2_reg"]
+
+
+class MLP(nn.Module):
+    """fc₁ → ReLU → … → fc_last, bias-free (the reference's layer stack).
+
+    The first layer also takes a ``SparseInput`` X, through K1.
+    """
+
+    def __init__(self, dims: Sequence[int], device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            nn.Linear(d_in, d_out, bias=False, device=device)
+            for d_in, d_out in zip(dims[:-1], dims[1:]))
+
+    @classmethod
+    def from_state_dict(cls, state: Mapping[str, torch.Tensor],
+                        device=None) -> "MLP":
+        """An MLP shaped and filled from ``state_dict()`` output."""
+        weights = [state[f"layers.{i}.weight"] for i in range(len(state))]
+        dims = [weights[0].shape[1]] + [w.shape[0] for w in weights]
+        model = cls(dims, device=device)
+        model.load_state_dict(state)
+        return model
+
+    def forward(self, x, *, train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(TRAINING_TODO)
+        h = x
+        last = len(self.layers) - 1
+        for i, lin in enumerate(self.layers):
+            if i == 0 and isinstance(x, SparseInput):
+                h = x.matmul(lin.weight.t())
+            else:
+                h = F.linear(h, lin.weight)
+            if i < last:
+                h = F.relu(h)
+        return h
+
+
+def init_mlp_params(n_features: int, hidden_units: Sequence[int],
+                    n_classes: int, *,
+                    generator: Optional[torch.Generator] = None,
+                    device=None) -> MLP:
+    """Glorot-uniform weights for [n_features, *hidden_units, n_classes].
+
+    Draws on the CPU from ``generator`` (so a seed gives the same weights
+    on every device), then moves the module to ``device`` (default
+    cuda). Not bit-equal to ``jax.random``; use ``params_from_jax`` for
+    weights shared with the JAX package.
+    """
+    dev = resolve_device(device)
+    dims = [n_features, *hidden_units, n_classes]
+    model = MLP(dims)
+    with torch.no_grad():
+        for lin in model.layers:
+            d_out, d_in = lin.weight.shape
+            limit = math.sqrt(6.0 / (d_in + d_out))
+            lin.weight.uniform_(-limit, limit, generator=generator)
+    return model.to(dev)
+
+
+def params_from_jax(params: Sequence[np.ndarray], device=None) -> MLP:
+    """The JAX package's ``[W₁ (f×h), …, W_last (h×c)]`` as an ``MLP``."""
+    dev = resolve_device(device)
+    mats = [np.asarray(w, dtype=np.float32) for w in params]
+    dims = [mats[0].shape[0]] + [w.shape[1] for w in mats]
+    model = MLP(dims)
+    with torch.no_grad():
+        for lin, w in zip(model.layers, mats):
+            lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
+    return model.to(dev)
+
+
+def mlp_forward(model: MLP, x, *, train: bool = False) -> torch.Tensor:
+    """Local (pre-propagation) logits H_local for all n nodes."""
+    return model(x, train=train)
+
+
+def ppnp_forward(model: MLP, x, propagator,
+                 idx: Optional[torch.Tensor] = None, *,
+                 train: bool = False) -> torch.Tensor:
+    """Full PPNP forward: MLP → propagate → select idx → log_softmax."""
+    h_local = mlp_forward(model, x, train=train)
+    z = propagator(h_local, idx, train=train)
+    return F.log_softmax(z, dim=-1)
+
+
+def l2_reg(model: MLP) -> torch.Tensor:
+    """Σ‖W_fc1‖² — the reference regularizes the first layer only."""
+    return torch.sum(model.layers[0].weight ** 2)

@@ -1,0 +1,147 @@
+"""Device-side sparse formats for the propagation SpMM.
+
+Counterpart of ``ppnp_tpu/ops/sparse.py`` plus the RCM permutation of
+``ppnp_tpu/ops/pairchunks.py::rcm_permutation``.
+
+``EdgeList`` — destination-sorted COO ``(dst, src, w)`` padded to a
+multiple of 512 exactly as the JAX package pads it, for the ``xla`` arm
+(gather + ``index_add_``, no kernel). The padding keeps the slot count
+equal to the reference's, which its slot-ordered dropout masks depend on.
+
+``CsrMatrix`` — the operator of the hand-written kernels (``pallas`` and
+``fused`` arms, sparse fc1): ``row_ptr``/``col`` int32, ``val`` f32, built
+on the host. A square operator is built under the SAME reverse
+Cuthill-McKee permutation the JAX builders pack with
+(``ppnp_tpu/builders.py``), so packed coordinates — and with them the
+canonical edge id ``row·span + col`` of later slices — line up. The port
+does not keep the TPU's PairChunks layout: it existed to turn gather and
+scatter into one-hot MXU matmuls, and a CUDA kernel gathers directly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+__all__ = ["EdgeList", "edge_list_from_scipy", "CsrMatrix",
+           "csr_from_scipy", "rcm_permutation"]
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeList:
+    """Destination-sorted, padded COO edges of a sparse matrix.
+
+    Padding entries have ``w == 0`` and ``dst == n_rows - 1``, so they add
+    nothing wherever they land.
+    """
+
+    dst: torch.Tensor  # int32 [nnz_pad], sorted ascending
+    src: torch.Tensor  # int32 [nnz_pad]
+    w: torch.Tensor    # float32 [nnz_pad]
+    n_rows: int
+    n_cols: int
+    nnz: int           # real (unpadded) count
+
+
+def edge_list_from_scipy(mat: sp.spmatrix, *, device: torch.device,
+                         pad_multiple: int = 512) -> EdgeList:
+    """Convert a scipy sparse matrix to a padded, dst-sorted EdgeList."""
+    csr = mat.tocsr()
+    csr.sum_duplicates()
+    coo = csr.tocoo()  # CSR→COO yields row-major (dst-sorted) order
+    nnz = coo.nnz
+    nnz_pad = _round_up(max(nnz, 1), pad_multiple)
+    n_rows, n_cols = csr.shape
+    pad = nnz_pad - nnz
+    dst = np.concatenate([coo.row.astype(np.int32),
+                          np.full(pad, n_rows - 1, dtype=np.int32)])
+    src = np.concatenate([coo.col.astype(np.int32),
+                          np.zeros(pad, dtype=np.int32)])
+    w = np.concatenate([coo.data.astype(np.float32),
+                        np.zeros(pad, dtype=np.float32)])
+    return EdgeList(dst=torch.from_numpy(dst).to(device),
+                    src=torch.from_numpy(src).to(device),
+                    w=torch.from_numpy(w).to(device),
+                    n_rows=n_rows, n_cols=n_cols, nnz=nnz)
+
+
+def rcm_permutation(mat: sp.spmatrix) -> np.ndarray:
+    """Bandwidth-reducing reverse Cuthill-McKee row/col permutation."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    return np.asarray(reverse_cuthill_mckee(mat.tocsr(),
+                                            symmetric_mode=True))
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrMatrix:
+    """A sparse matrix in CSR form on one device, the kernels' operand.
+
+    ``perm`` (packed row → original row) and ``iperm`` are set when a
+    square matrix was built under a row/col permutation; callers apply
+    them once outside their hot loops.
+    """
+
+    row_ptr: torch.Tensor   # int32 [n_rows + 1]
+    col: torch.Tensor       # int32 [nnz], ascending within each row
+    val: torch.Tensor       # float32 [nnz]
+    n_rows: int
+    n_cols: int
+    perm: Optional[torch.Tensor] = None   # int32 [n_rows] or None
+    iperm: Optional[torch.Tensor] = None  # int32 [n_rows] or None
+
+    @property
+    def nnz(self) -> int:
+        return self.col.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+    def row_ids(self) -> torch.Tensor:
+        """The row of every stored entry (int64 [nnz]), CSR order."""
+        counts = (self.row_ptr[1:] - self.row_ptr[:-1]).long()
+        return torch.repeat_interleave(
+            torch.arange(self.n_rows, device=self.device), counts)
+
+
+def csr_from_scipy(mat: sp.spmatrix, *, device: torch.device,
+                   perm: Optional[np.ndarray] = None) -> CsrMatrix:
+    """Build a ``CsrMatrix`` on ``device`` from a scipy matrix.
+
+    ``perm`` (square matrices only) relabels rows and columns: packed
+    row ``i`` is original row ``perm[i]`` — the JAX packers' convention.
+    """
+    csr = sp.csr_matrix(mat, dtype=np.float32, copy=True)
+    csr.sum_duplicates()
+    iperm = None
+    if perm is not None:
+        perm = np.asarray(perm)
+        if csr.shape[0] != csr.shape[1]:
+            raise ValueError("perm requires a square matrix")
+        if not np.array_equal(np.sort(perm), np.arange(csr.shape[0])):
+            raise ValueError("perm is not a permutation of the rows")
+        csr = csr[perm][:, perm].tocsr()
+        iperm = np.empty_like(perm)
+        iperm[perm] = np.arange(len(perm))
+    csr.sort_indices()
+    if csr.nnz >= 2 ** 31:
+        raise ValueError(f"nnz={csr.nnz} exceeds the int32 index range")
+
+    def dev(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
+            device)
+
+    return CsrMatrix(
+        row_ptr=dev(csr.indptr, np.int32), col=dev(csr.indices, np.int32),
+        val=dev(csr.data, np.float32), n_rows=csr.shape[0],
+        n_cols=csr.shape[1],
+        perm=None if perm is None else dev(perm, np.int32),
+        iperm=None if iperm is None else dev(iperm, np.int32))
