@@ -8,15 +8,25 @@ order; any failure exits non-zero and nothing is caught:
    full-f32 matmuls (``allow_tf32`` False);
 2. build every kernel from ``ppnp_tpu_torch/csrc`` (one nvcc per source,
    started together) and print the build seconds;
-3. hold each kernel against its plain PyTorch version on the card at the
-   MS Academic shapes of the main path, within rtol = atol = 1e-5 (only
-   the f32 summation order differs), and time kernel, plain version and
-   the nearest single PyTorch call (CUDA events, median of 25 launches);
-4. drive the main path: write a checkpoint of random weights from a
-   seeded generator, then run ``python -m ppnp_tpu_torch predict`` in
-   process through the xla, pallas and fused backends, several requests
-   each; assert the kernels' launch counts and that the backends agree;
-5. print one ``{"kernels": [...]}`` line, then the card line, then
+3. hold each kernel and mode against its plain PyTorch version on the
+   card at the MS Academic shapes of the main path, within
+   rtol = atol = 1e-5 (only the f32 summation order differs): K1 forward
+   (propagation step, sparse fc1), K1 backward (Âᵀ, c = 15; Xᵀ·dH,
+   c = 64), K3 forward and adjoint (K reversed masked planes); the mask
+   kernels bit-equal to their plain int64 Threefry run on the CPU. Time
+   kernel, plain version and the nearest single PyTorch call (CUDA
+   events);
+4. serving: write a checkpoint of random weights from a seeded
+   generator, then run ``python -m ppnp_tpu_torch predict`` in process
+   through the xla, pallas and fused backends, several requests each;
+   assert the kernels' launch counts and that the backends agree;
+5. training: run ``python -m ppnp_tpu_torch train`` in process on
+   ms_academic with sparse X, ~20 epochs on the pallas and fused arms and
+   a few on the xla arm; assert the launch counts per epoch, a finite
+   and falling loss, one epoch on the card against the same epoch on the
+   CPU, and that ``predict`` serves each trained checkpoint on every arm
+   with the same argmax; print ms per epoch per arm;
+6. print one ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -35,10 +45,13 @@ import numpy as np
 import torch
 
 DATASET = "ms_academic"
-REQUESTS = 5           # forward passes per backend in the main path
+REQUESTS = 3           # forward passes per backend in the serving phase
+EPOCHS = {"pallas": 20, "fused": 20, "xla": 4}   # training phase
 RTOL = ATOL = 1e-5     # kernel vs plain version: f32 summation order only
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5   # one epoch, card vs CPU: weight grads
 AGREE = 0.999          # pallas / fused argmax equal to xla on ≥ this share
 REF_TOL = 1e-4         # xla arm (f32) vs the float64 reference forward
+THREEFRY_OPS = 80      # 32-bit ALU operations of one Threefry-2x32 draw
 SLEEP_CYCLES = 20_000_000   # ~10 ms of GPU clock: covers enqueueing 20 calls
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -119,44 +132,66 @@ def csr_tensor(a, values):
 
 
 def kernel_phases(dev):
-    """Phase 3: each kernel against its plain version at main-path
-    shapes. Returns the per-kernel records (without launches)."""
+    """Phase 3: each kernel and mode against its plain version at
+    main-path shapes. Returns the per-kernel records (without launches)."""
     from ppnp_tpu_torch.builders import build_propagator, load_graph
     from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.kernels.fused import appnp_fused, appnp_fused_plain
-    from ppnp_tpu_torch.kernels.spmm import spmm_csr, spmm_csr_plain
+    from ppnp_tpu_torch.kernels.masks import (dropout_mask,
+                                              dropout_mask_plain,
+                                              edge_masks, edge_masks_plain)
+    from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_bwd,
+                                             spmm_csr_plain)
+    from ppnp_tpu_torch.ops import prng
+    from ppnp_tpu_torch.ops.dropout import quantized_keep
     from ppnp_tpu_torch.train import prepare_attr_input
 
     cfg = RunConfig(dataset=DATASET, backend="pallas")
     graph = load_graph(cfg)
     prop = build_propagator(cfg, graph, device=dev)
-    a, alpha, niter = prop.csr, prop.alpha, prop.niter
+    a, a_t, alpha, niter = prop.csr, prop.csr_t, prop.alpha, prop.niter
     xin = prepare_attr_input(graph, prop, x_format="sparse")
-    x = xin.csr
+    x, x_t = xin.csr, xin.csr_t
     n = a.n_rows
     c = int(graph.labels.max()) + 1
     f, hidden = x.n_cols, 64
     rng = np.random.RandomState(0)
     h = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(dev)
     init = alpha * h
     w_fc1 = torch.from_numpy(
         (0.03 * rng.randn(f, hidden)).astype(np.float32)).to(dev)
-    ws = prop.w_scaled
+    dh = torch.from_numpy(rng.randn(n, hidden).astype(np.float32)).to(dev)
+    ws, ws_t = prop.w_scaled, prop.w_t_scaled
     print(f"shapes: n={n} nnz(A)={a.nnz} c={c} | X {n}x{f} "
           f"nnz(X)={x.nnz} hidden={hidden} | alpha={alpha} K={niter}")
 
-    def record(name, kernel, plain, library, bytes_moved, flops):
-        err = compare(name, kernel(), plain())
+    def record(name, kernel, plain, library, bytes_moved, flops,
+               exact_ref=None):
+        """Compare (bit-equal to ``exact_ref`` where one is given, else
+        within the tolerance of the plain version) and time."""
+        out = kernel()
+        if exact_ref is not None:
+            torch.cuda.synchronize()
+            for o, r in zip(out, exact_ref):
+                if not torch.equal(o.cpu(), r):
+                    raise SystemExit(f"{name}: not bit-equal to the plain "
+                                     "version run on the CPU")
+            err = 0.0
+        else:
+            err = compare(name, out, plain())
         b_ms, b_by = bound(bytes_moved, flops)
         rec = dict(max_abs_err=err, ms=time_ms(kernel),
                    plain_ms=time_ms(plain),
                    library_ms=None if library is None else time_ms(library),
                    bound_ms=b_ms, bound_by=b_by, call_ms=call_ms(kernel))
-        print(f"{name}: max_abs_err={err:.3g} (tol rtol=atol={RTOL}) "
+        print(f"{name}: max_abs_err={err:.3g} "
+              f"({'bit-equal' if exact_ref is not None else f'tol rtol=atol={RTOL}'}) "
               + " ".join(f"{k}={v}" for k, v in rec.items()
                          if k != "max_abs_err"))
         return rec
 
+    recs = {}
     # K1 at the propagation step: (1-α)Â @ H + α·H⁰
     a_lib = csr_tensor(a, ws)
     step = record("K1 step", lambda: spmm_csr(a, h, ws, init),
@@ -171,23 +206,78 @@ def kernel_phases(dev):
                  lambda: torch.sparse.mm(x_lib, w_fc1),
                  (n + 1) * 4 + x.nnz * 8 + f * hidden * 4 + n * hidden * 4,
                  2 * x.nnz * hidden)
-    # K3: K steps in one launch, shared (1-α)Â plane; no single PyTorch
-    # call computes K steps, so there is no library time
-    planes = ws[None]
-    k3 = record("K3", lambda: appnp_fused(a, h, alpha=alpha, niter=niter,
-                                          e_w_all=planes),
-                lambda: appnp_fused_plain(a, h, alpha=alpha, niter=niter,
-                                          e_w_all=planes),
-                None, (n + 1) * 4 + a.nnz * 8 + 2 * n * c * 4,
-                niter * (2 * a.nnz * c + 2 * n * c))
     # one record per kernel: K1's headline numbers are at the propagation
     # step (10 of its 11 launches per pallas request); fc1 rides along
-    k1 = dict(step, max_abs_err=max(step["max_abs_err"],
-                                    fc1["max_abs_err"]), fc1=fc1)
-    return {"spmm_csr": k1, "appnp_fused": k3}
+    recs["spmm_csr"] = dict(step, max_abs_err=max(step["max_abs_err"],
+                                                  fc1["max_abs_err"]),
+                            fc1=fc1)
+    # K1 backward: (1-α)Âᵀ_drop @ g on the CSR of Âᵀ, and dW = Xᵀ @ dH
+    at_lib = csr_tensor(a_t, ws_t)
+    bwd = record("K1 bwd step", lambda: spmm_csr_bwd(a_t, g, ws_t),
+                 lambda: spmm_csr_plain(a_t, g, ws_t),
+                 lambda: torch.sparse.mm(at_lib, g),
+                 (n + 1) * 4 + a_t.nnz * 8 + 2 * n * c * 4,
+                 2 * a_t.nnz * c)
+    xt_lib = csr_tensor(x_t, x_t.val)
+    bwd_x = record("K1 bwd fc1 (dW)", lambda: spmm_csr_bwd(x_t, dh, x_t.val),
+                   lambda: spmm_csr_plain(x_t, dh, x_t.val),
+                   lambda: torch.sparse.mm(xt_lib, dh),
+                   (f + 1) * 4 + x_t.nnz * 8 + n * hidden * 4
+                   + f * hidden * 4, 2 * x_t.nnz * hidden)
+    recs["spmm_csr_bwd"] = dict(bwd, max_abs_err=max(bwd["max_abs_err"],
+                                                     bwd_x["max_abs_err"]),
+                                fc1=bwd_x)
+    # K3 forward: K steps in one launch, shared (1-α)Â plane; no single
+    # PyTorch call computes K steps, so there is no library time
+    planes1 = ws[None]
+    recs["appnp_fused"] = record(
+        "K3", lambda: appnp_fused(a, h, alpha=alpha, niter=niter,
+                                  e_w_all=planes1),
+        lambda: appnp_fused_plain(a, h, alpha=alpha, niter=niter,
+                                  e_w_all=planes1),
+        None, (n + 1) * 4 + a.nnz * 8 + 2 * n * c * 4,
+        niter * (2 * a.nnz * c + 2 * n * c))
+    # the mask path: K id-keyed planes of Â and Âᵀ in one launch, bit-equal
+    # to the int64 Threefry on the CPU
+    keys = prng.split(prng.fold_in(prng.PRNGKey(0), 7), niter)
+    keep = 1.0 - prop.drop_prob
+    cpu = torch.device("cpu")
+    a_cpu, a_t_cpu = a.to(cpu), a_t.to(cpu)
+    want = edge_masks_plain(keys, a_cpu, a_t_cpu, keep=keep,
+                            scale=1.0 - alpha)
+    recs["edge_masks"] = record(
+        "edge masks (Â and Âᵀ, K planes)",
+        lambda: edge_masks(keys, a, a_t, keep=keep, scale=1.0 - alpha),
+        lambda: edge_masks_plain(keys, a, a_t, keep=keep,
+                                 scale=1.0 - alpha),
+        None, 2 * ((n + 1) * 4 + a.nnz * 8) + 2 * niter * a.nnz * 4,
+        2 * niter * a.nnz * THREEFRY_OPS, exact_ref=want)
+    planes, planes_t = edge_masks(keys, a, a_t, keep=keep,
+                                  scale=1.0 - alpha)
+    # K3 adjoint: the train-mode VJP on Âᵀ with the K planes reversed
+    rev = torch.flip(planes_t, dims=(0,))
+    recs["appnp_adjoint"] = record(
+        "K3 adjoint", lambda: appnp_fused(a_t, g, alpha=alpha, niter=niter,
+                                          e_w_all=rev, mode="adjoint"),
+        lambda: appnp_fused_plain(a_t, g, alpha=alpha, niter=niter,
+                                  e_w_all=rev, mode="adjoint"),
+        None, (n + 1) * 4 + a_t.nnz * 4 + niter * a_t.nnz * 4
+        + 2 * n * c * 4, niter * (2 * a_t.nnz * c + 2 * n * c))
+    # dense dropout's keep mask on the hidden layer (n × 64)
+    key = prng.fold_in(prng.PRNGKey(0), 8)
+    _, thresh = quantized_keep(prop.drop_prob)
+    shape = (n, hidden)
+    recs["dropout_mask"] = record(
+        "dropout mask (n x 64)",
+        lambda: (dropout_mask(key, shape, thresh, dev),),
+        lambda: (dropout_mask_plain(key, shape, thresh, dev),),
+        None, n * hidden, n * hidden // 4 * THREEFRY_OPS,
+        exact_ref=(dropout_mask_plain(key, shape, thresh),))
+    del planes
+    return recs
 
 
-def main_path(dev):
+def serving_path(dev):
     """Phase 4: ``predict`` through every backend; returns launch counts
     per backend."""
     from ppnp_tpu_torch.__main__ import main as cli_main
@@ -231,7 +321,8 @@ def main_path(dev):
         print(f"predict --backend {b}: n={res['n']} "
               f"request_ms={[round(t, 3) for t in res['request_ms']]} "
               f"launches={launches[b]}")
-        want = {k: v * REQUESTS for k, v in expected[b].items()}
+        want = {k: expected[b].get(k, 0) * REQUESTS
+                for k in build.LAUNCHES}
         if launches[b] != want:
             raise SystemExit(f"predict --backend {b}: launches "
                              f"{launches[b]}, expected {want}")
@@ -276,6 +367,228 @@ def main_path(dev):
         err = compare(f"log-probs {b} vs xla", logp[b], logp["xla"])
         print(f"log-probs {b} vs xla: max_abs_err={err:.3g}")
     return launches
+
+
+def launches_per_epoch(backend: str, niter: int) -> dict:
+    """Kernel launches of one training epoch with sparse X: the train
+    forward and backward, then the stopping-set eval forward.
+
+    Masks: one edge_masks launch draws X's and Xᵀ's plane, one draws Â's
+    and Âᵀ's K planes (pallas, fused); the hidden layer's dropout is one
+    dropout_mask launch, and on the xla arm each of the K steps masks the
+    EdgeList's values with one more.
+    """
+    if backend == "pallas":
+        return {"spmm_csr": 1 + niter + 1 + niter,
+                "spmm_csr_bwd": niter + 1, "edge_masks": 2,
+                "dropout_mask": 1}
+    if backend == "fused":
+        return {"spmm_csr": 2, "spmm_csr_bwd": 1, "appnp_fused": 2,
+                "appnp_adjoint": 1, "edge_masks": 2, "dropout_mask": 1}
+    return {"spmm_csr": 2, "spmm_csr_bwd": 1, "edge_masks": 1,
+            "dropout_mask": 1 + niter}
+
+
+# the final evaluation after training: one eval forward
+FINAL_EVAL = {"pallas": {"spmm_csr": 11}, "fused": {"spmm_csr": 1,
+                                                    "appnp_fused": 1},
+              "xla": {"spmm_csr": 1}}
+
+
+def training_path(dev):
+    """Phase 5: ``train`` through every backend; returns launch counts
+    per backend and ms per epoch per backend."""
+    from ppnp_tpu_torch.__main__ import main as cli_main
+    from ppnp_tpu_torch.kernels import build
+
+    launches, epoch_ms, ckpts = {}, {}, {}
+    for b, epochs in EPOCHS.items():
+        ckpt = ROOT / "build" / "chip_smoke" / f"train_{b}"
+        metrics = ckpt.with_suffix(".jsonl")
+        for old in (metrics,):
+            if old.exists():
+                old.unlink()
+        buf = io.StringIO()
+        build.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["train", "--dataset", DATASET, "--backend", b,
+                           "--x-format", "sparse", "--device", str(dev),
+                           "--max-epochs", str(epochs), "--patience",
+                           "100", "--print-interval", "0",
+                           "--checkpoint-dir", str(ckpt),
+                           "--metrics-out", str(metrics)])
+        launches[b] = dict(build.LAUNCHES)
+        if rc != 0:
+            raise SystemExit(f"train --backend {b} exited {rc}")
+        res = json.loads(buf.getvalue())
+        rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+        rows = [r for r in rows if r["event"] == "epoch"]
+        losses = [r["train_loss"] for r in rows]
+        if len(rows) != epochs or res["last_epoch"] != epochs - 1:
+            raise SystemExit(f"train --backend {b}: {len(rows)} epochs, "
+                             f"last_epoch {res['last_epoch']}")
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise SystemExit(f"train --backend {b}: loss not finite and "
+                             f"falling: {losses}")
+        per = launches_per_epoch(b, res["config"]["niter"])
+        want = {k: per.get(k, 0) * epochs + FINAL_EVAL[b].get(k, 0)
+                for k in build.LAUNCHES}
+        if launches[b] != want:
+            raise SystemExit(f"train --backend {b}: launches "
+                             f"{launches[b]}, expected {want}")
+        ts = np.array([r["ts"] for r in rows])
+        epoch_ms[b] = float(np.median(np.diff(ts[1:]))) * 1e3
+        ckpts[b] = ckpt
+        print(f"train --backend {b}: {epochs} epochs, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, valtest acc "
+              f"{res['valtest']['accuracy']:.4f}, ms/epoch (median of "
+              f"epochs 2..{epochs - 1}, host clock) {epoch_ms[b]:.3f}, "
+              f"launches per epoch {per}")
+    for b in ("pallas", "fused"):
+        serve_checkpoint(dev, ckpts[b], b)
+    for b in ("pallas", "fused"):
+        epoch_on_card_vs_cpu(dev, b)
+    for b in EPOCHS:
+        profile_epochs(dev, b)
+    return launches, epoch_ms
+
+
+def serve_checkpoint(dev, ckpt, trained_on: str) -> None:
+    """``predict`` serves a trained checkpoint on every arm with the same
+    argmax (≥ AGREE of the nodes against xla)."""
+    from ppnp_tpu_torch.__main__ import main as cli_main
+    preds = {}
+    for b in ("xla", "pallas", "fused"):
+        out_npz = ckpt.with_name(f"{ckpt.name}_preds_{b}.npz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["predict", "--dataset", DATASET, "--backend", b,
+                           "--x-format", "sparse", "--device", str(dev),
+                           "--checkpoint-dir", str(ckpt), "--out",
+                           str(out_npz)])
+        if rc != 0:
+            raise SystemExit(f"predict of the {trained_on}-trained "
+                             f"checkpoint on {b} exited {rc}")
+        preds[b] = np.load(out_npz)["predictions"]
+    for b in ("pallas", "fused"):
+        agree = float((preds[b] == preds["xla"]).mean())
+        print(f"checkpoint trained on {trained_on}: predict {b} vs xla "
+              f"argmax agreement {agree:.6f}")
+        if agree < AGREE:
+            raise SystemExit(f"{b} agrees with xla on {agree} < {AGREE}")
+
+
+def profile_epochs(dev, backend: str, reps: int = 5) -> None:
+    """Where a training epoch's time goes: ``reps`` epochs (train forward,
+    backward, Adam, stopping eval, one device-to-host read) under
+    ``torch.profiler`` after two unprofiled ones: host-clock ms per
+    epoch, device busy ms per epoch and its share, the largest device
+    items and the largest host items (self CPU time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.models.appnp import (init_mlp_params, l2_reg,
+                                             ppnp_forward)
+    from ppnp_tpu_torch.ops import prng
+    from ppnp_tpu_torch.optim import Adam
+    from ppnp_tpu_torch.preprocessing import gen_splits
+    from ppnp_tpu_torch.train import (_mean, _nll, default_idx_split_args,
+                                      prepare_attr_input)
+
+    cfg = RunConfig(dataset=DATASET, backend=backend)
+    graph = load_graph(cfg)
+    labels = np.asarray(graph.labels)
+    idx, idx_stop, _ = gen_splits(labels, default_idx_split_args)
+    prop = build_propagator(cfg, graph, device=dev)
+    x = prepare_attr_input(graph, prop, x_format="sparse")
+    key_init, key_epochs = prng.split(prng.PRNGKey(0))
+    model = init_mlp_params(x.shape[1], [64], int(labels.max()) + 1,
+                            key=key_init, device=dev)
+    params = [lin.weight for lin in model.layers]
+    adam = Adam(params)
+    i, i_stop = (torch.from_numpy(a).to(dev) for a in (idx, idx_stop))
+    y, y_stop = (torch.from_numpy(labels[a]).long().to(dev)
+                 for a in (idx, idx_stop))
+
+    def epoch(e):
+        logp = ppnp_forward(model, x, prop, i,
+                            key=prng.fold_in(key_epochs, e), train=True)
+        loss = _nll(logp, y) + 5e-3 / 2.0 * l2_reg(model)
+        adam.step(torch.autograd.grad(loss, params))
+        with torch.no_grad():
+            logp = ppnp_forward(model, x, prop, i_stop)
+            acc = _mean((logp.argmax(dim=-1) == y_stop).float())
+            return torch.stack([loss.detach(), acc,
+                                _nll(logp, y_stop)]).tolist()
+
+    for e in range(2):
+        epoch(e)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for e in range(2, 2 + reps):
+            epoch(e)
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    events = prof.key_averages()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in on_card) / 1e3 / reps
+    top_dev = sorted(on_card, key=lambda e: -e.device_time_total)[:4]
+    on_host = [e for e in events if e.device_type == DeviceType.CPU]
+    top_host = sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:6]
+    print(f"profile train --backend {backend}: {wall:.3f} ms/epoch under "
+          f"the profiler, device busy {busy:.4f} ms/epoch "
+          f"({busy / wall:.3f}); by device time: "
+          + "; ".join(f"{e.key[:40]} x{e.count // reps} "
+                      f"{e.device_time_total / 1e3 / reps:.4f} ms"
+                      for e in top_dev)
+          + " | by host self time: "
+          + "; ".join(f"{e.key[:40]} x{e.count // reps} "
+                      f"{e.self_cpu_time_total / 1e3 / reps:.4f} ms"
+                      for e in top_host))
+
+
+def epoch_on_card_vs_cpu(dev, backend: str) -> None:
+    """One training epoch's loss and weight gradients on the card (the
+    kernels) against the same epoch on the CPU (the plain versions) from
+    the same key and weights."""
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.models.appnp import (init_mlp_params, l2_reg,
+                                             ppnp_forward)
+    from ppnp_tpu_torch.ops import prng
+    from ppnp_tpu_torch.preprocessing import gen_splits
+    from ppnp_tpu_torch.train import (_nll, default_idx_split_args,
+                                      prepare_attr_input)
+
+    cfg = RunConfig(dataset=DATASET, backend=backend)
+    graph = load_graph(cfg)
+    labels = np.asarray(graph.labels)
+    idx, _, _ = gen_splits(labels, default_idx_split_args)
+    n_classes = int(labels.max()) + 1
+    key_init, key_epochs = prng.split(prng.PRNGKey(0))
+    key = prng.fold_in(key_epochs, 3)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        prop = build_propagator(cfg, graph, device=d)
+        x = prepare_attr_input(graph, prop, x_format="sparse")
+        model = init_mlp_params(x.shape[1], [64], n_classes, key=key_init,
+                                device=d)
+        i = torch.from_numpy(idx).to(d)
+        y = torch.from_numpy(labels[idx]).long().to(d)
+        logp = ppnp_forward(model, x, prop, i, key=key, train=True)
+        loss = _nll(logp, y) + 5e-3 / 2.0 * l2_reg(model)
+        loss.backward()
+        out.append((loss.item(), [lin.weight.grad.cpu()
+                                  for lin in model.layers]))
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    err = [float((a - b).abs().max()) for a, b in zip(g_card, g_cpu)]
+    print(f"one epoch ({backend}) card vs CPU: loss {l_card:.7f} vs "
+          f"{l_cpu:.7f}, grad max_abs_err {err}")
+    np.testing.assert_allclose(l_card, l_cpu, rtol=RTOL, atol=ATOL)
+    for a, b in zip(g_card, g_cpu):
+        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
 def profile_requests(model, x, prop, reps: int = REQUESTS):
@@ -354,23 +667,36 @@ def main() -> int:
                 print(f"  nvcc {name}: {line.strip()}")
 
     recs = kernel_phases(dev)
-    launches = main_path(dev)
+    launches = {f"predict {b}": v for b, v in serving_path(dev).items()}
+    trained, epoch_ms = training_path(dev)
+    launches.update({f"train {b}": v for b, v in trained.items()})
+    print("ms per training epoch (host clock, NVIDIA card above): "
+          + json.dumps(epoch_ms))
 
     meta = {
-        "spmm_csr": dict(route="cuda", source="ppnp_tpu_torch/csrc/spmm.cu",
-                         replaces="ppnp_tpu/kernels/spmm.py:71"),
-        "appnp_fused": dict(route="cuda",
-                            source="ppnp_tpu_torch/csrc/fused.cu",
-                            replaces="ppnp_tpu/kernels/fused.py:84"),
+        "spmm_csr": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",
+                     "ppnp_tpu/kernels/spmm.py:71"),
+        "spmm_csr_bwd": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",
+                         "ppnp_tpu/kernels/spmm.py:71"),
+        "appnp_fused": ("cuda", "ppnp_tpu_torch/csrc/fused.cu",
+                        "ppnp_tpu/kernels/fused.py:84"),
+        "appnp_adjoint": ("cuda", "ppnp_tpu_torch/csrc/fused.cu",
+                          "ppnp_tpu/kernels/fused.py:84"),
+        "edge_masks": ("cuda", "ppnp_tpu_torch/csrc/masks.cu",
+                       "ppnp_tpu/ops/dropout.py:136"),
+        "dropout_mask": ("cuda", "ppnp_tpu_torch/csrc/masks.cu",
+                         "ppnp_tpu/ops/dropout.py:99"),
     }
     kernels = []
     for name, rec in recs.items():
-        total = sum(launches[b][name] for b in launches)
+        total = sum(launches[p][name] for p in launches)
         if total == 0:
             raise SystemExit(f"{name} was never launched on the main path")
+        route, source, replaces = meta[name]
         kernels.append(dict(
-            name=name, **meta[name], launches=total,
-            launches_by_backend={b: launches[b][name] for b in launches},
+            name=name, route=route, source=source, replaces=replaces,
+            launches=total,
+            launches_by_path={p: launches[p][name] for p in launches},
             **rec))
     print(json.dumps({"kernels": kernels}))
     print(card)

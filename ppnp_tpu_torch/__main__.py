@@ -1,15 +1,19 @@
-"""CLI: ``python -m ppnp_tpu_torch {predict,info} ...``
+"""CLI: ``python -m ppnp_tpu_torch {train,predict,info} ...``
 
-The serving commands of ``python -m ppnp_tpu``, with the same flags plus
-``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
-versions of the kernels). ``predict`` prints the JSON keys of the JAX
-package's ``predict``, plus ``device`` and ``request_ms``.
+The training and serving commands of ``python -m ppnp_tpu``, with the
+same flags plus ``--device`` (default ``cuda``; ``--device cpu`` runs the
+plain PyTorch versions of the kernels). ``train`` prints the JSON keys of
+the JAX package's ``train`` (``ppnp_tpu/__main__.py:97-126``) plus
+``device``, and writes the checkpoint ``predict`` serves; ``predict``
+prints the JSON keys of the JAX package's ``predict``, plus ``device``
+and ``request_ms``.
 
 Flags of the JAX CLI that select what the port does not have yet are
 accepted so the same command lines parse, and raise where they matter
 (``--propagation exact|sharded``, ``--backend blocked``,
-``--x-dtype bfloat16``); ``--layout`` and the sharding flags do not
-change a CSR operator on one card.
+``--x-dtype bfloat16``, ``train --tensorboard`` and ``--profile``);
+``--layout`` and the sharding flags do not change a CSR operator on one
+card.
 """
 
 from __future__ import annotations
@@ -84,9 +88,44 @@ def _cfg_from_args(args) -> RunConfig:
         n_shards=args.n_shards, print_interval=args.print_interval,
         n_slices=args.n_slices, rows_per_block=args.rows_per_block,
         shard_reorder=args.shard_reorder,
+        metrics_path=getattr(args, "metrics_out", None),
         checkpoint_dir=getattr(args, "checkpoint_dir", None),
+        resume=getattr(args, "resume", False),
         x_dtype=args.x_dtype or "float32", x_format=args.x_format,
     )
+
+
+def cmd_train(args) -> int:
+    """Train one model on the chosen device and print the result JSON."""
+    from ppnp_tpu_torch.builders import (build_propagator, load_graph,
+                                         train_kwargs)
+    from ppnp_tpu_torch.device import resolve_device
+    from ppnp_tpu_torch.metrics import TENSORBOARD_TODO, JsonlWriter
+    from ppnp_tpu_torch.train import PROFILE_TODO, train_model
+
+    cfg = _cfg_from_args(args)
+    device = resolve_device(args.device)
+    if args.profile:
+        raise NotImplementedError(PROFILE_TODO)
+    if args.tensorboard:
+        raise NotImplementedError(TENSORBOARD_TODO)
+    graph = load_graph(cfg)
+    logger.info("dataset %s: %s", cfg.dataset, graph)
+    propagator = build_propagator(cfg, graph, device=device)
+    metrics = JsonlWriter(cfg.metrics_path) if cfg.metrics_path else None
+    try:
+        _, result = train_model(
+            graph, propagator, metrics=metrics,
+            checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
+            **train_kwargs(cfg))
+    finally:
+        if metrics is not None:
+            metrics.close()
+    out = {k: v for k, v in result.items() if k != "predictions"}
+    out["config"] = json.loads(cfg.to_json())
+    out["device"] = str(device)
+    print(json.dumps(out, indent=2, default=float))
+    return 0
 
 
 def cmd_predict(args) -> int:
@@ -167,6 +206,18 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
     parser = argparse.ArgumentParser(prog="ppnp_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", help="train one model")
+    _add_common(p)
+    p.add_argument("--metrics-out", default=None,
+                   help="append per-epoch metrics to this JSONL file")
+    p.add_argument("--tensorboard", default=None,
+                   help="TensorBoard log dir (not ported yet: raises)")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="profiler trace dir (not ported yet: raises)")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("predict",
                        help="restore a checkpoint and emit predictions")

@@ -1,12 +1,15 @@
-"""Builders: RunConfig + graph → propagation operator.
+"""Builders: RunConfig + graph → propagation operator / training kwargs.
 
 Counterpart of ``ppnp_tpu/builders.py`` for ``propagation="power"`` with
 the ``xla``, ``pallas`` and ``fused`` backends. The ``pallas``/``fused``
 operator is Â in CSR under the reverse Cuthill-McKee permutation the JAX
-builders pack with (for every ``--layout``), so packed coordinates agree.
+builders pack with (for every ``--layout``), so packed coordinates and
+edge ids agree, plus the CSR of Âᵀ for the backward.
 """
 
 from __future__ import annotations
+
+from typing import Any, Dict
 
 from ppnp_tpu_torch.config import RunConfig
 from ppnp_tpu_torch.data.datasets import DATASETS, load_dataset
@@ -14,10 +17,12 @@ from ppnp_tpu_torch.data.sparsegraph import SparseGraph
 from ppnp_tpu_torch.device import resolve_device
 from ppnp_tpu_torch.ops.normalize import calc_A_hat
 from ppnp_tpu_torch.ops.propagation import BACKENDS, PPRPowerIteration
-from ppnp_tpu_torch.ops.sparse import (csr_from_scipy, edge_list_from_scipy,
+from ppnp_tpu_torch.ops.sparse import (csr_from_scipy, csr_transpose,
+                                       edge_list_from_scipy,
                                        rcm_permutation)
 
-__all__ = ["load_graph", "resolve_alpha", "build_propagator"]
+__all__ = ["load_graph", "resolve_alpha", "build_propagator",
+           "train_kwargs"]
 
 # What the port does not have yet, and the ROADMAP.md item that brings it.
 _NOT_PORTED = {
@@ -53,11 +58,35 @@ def build_propagator(cfg: RunConfig, graph: SparseGraph,
             f"backend={cfg.backend!r} is not ported yet "
             f"({_NOT_PORTED.get(cfg.backend, 'ROADMAP.md')})")
     a_hat = calc_A_hat(graph.adj_matrix)
-    edges = csr = None
+    edges = csr = csr_t = None
     if cfg.backend == "xla":
         edges = edge_list_from_scipy(a_hat, device=dev)
     else:
         csr = csr_from_scipy(a_hat, perm=rcm_permutation(a_hat), device=dev)
+        csr_t = csr_transpose(csr)
     return PPRPowerIteration(alpha=resolve_alpha(cfg), niter=cfg.niter,
                              drop_prob=cfg.drop_prob, backend=cfg.backend,
-                             edges=edges, csr=csr)
+                             edges=edges, csr=csr, csr_t=csr_t)
+
+
+def train_kwargs(cfg: RunConfig) -> Dict[str, Any]:
+    """kwargs for ``ppnp_tpu_torch.train.train_model`` from a config."""
+    return dict(
+        hidden_units=list(cfg.hidden),
+        drop_prob=cfg.drop_prob,
+        learning_rate=cfg.learning_rate,
+        reg_lambda=cfg.reg_lambda,
+        idx_split_args={
+            "ntrain_per_class": cfg.ntrain_per_class,
+            "nstopping": cfg.nstopping,
+            "nknown": cfg.nknown,
+            "seed": cfg.split_seed,
+        },
+        stopping_args={"max_epochs": cfg.max_epochs,
+                       "patience": cfg.patience},
+        test=cfg.test,
+        seed=cfg.seed,
+        print_interval=cfg.print_interval,
+        x_dtype=None if cfg.x_dtype == "float32" else cfg.x_dtype,
+        x_format=cfg.x_format,
+    )

@@ -1,10 +1,14 @@
 """Checkpoints with ``torch.save``/``torch.load``.
 
 Counterpart of ``ppnp_tpu/checkpoint.py`` (orbax there): the same
-``<directory>/step_<n>`` layout, one ``state.pt`` file per step. The
-serving path reads ``{params, best_state, epoch, early_stopping:
-{best_epoch}}``, with ``params``/``best_state`` an ``MLP.state_dict()``.
-Loading uses ``weights_only=True``: tensors, numbers, strings and dicts.
+``<directory>/step_<n>`` layout, one ``state.pt`` file per step. Training
+writes its full state (``ppnp_tpu/train.py:463-478``): ``params`` and
+``best_state`` (``MLP.state_dict()``), ``opt_state`` (``{count, mu,
+nu}``, ``optim.Adam.state_dict()``), ``epoch`` and ``early_stopping``
+``{best_vals, patience, best_acc, best_loss, best_epoch}``; ``resume``
+reads it back, and the serving path reads ``params``/``best_state``,
+``epoch`` and ``early_stopping.best_epoch``. Loading uses
+``weights_only=True``: tensors, numbers, strings, lists and dicts.
 """
 
 from __future__ import annotations

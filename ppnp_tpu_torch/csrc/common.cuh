@@ -1,10 +1,13 @@
-// Shared pieces of the port's CUDA kernels (spmm.cu, fused.cu).
+// Shared pieces of the port's CUDA kernels (spmm.cu, fused.cu, masks.cu).
 //
-// Both kernels compute rows of A_w @ H (+ init) for a CSR matrix A whose
-// edge weights w may be overridden per call. A group of TPR threads owns
-// one output row; its lanes stride over the feature columns, and each
+// The SpMM kernels compute rows of A_w @ H (+ init) for a CSR matrix A
+// whose edge weights w may be overridden per call. A group of TPR threads
+// owns one output row; its lanes stride over the feature columns, and each
 // output element sums its row's edges one by one in CSR order. The sum
 // order is therefore fixed: no atomics, the same bits on every run.
+//
+// The mask kernels draw with threefry2x32, the 20-round Threefry-2x32 of
+// ppnp_tpu/ops/hashrng.py (and of jax.random), on uint32 registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,6 +38,28 @@ __device__ __forceinline__ float row_dot(const int* __restrict__ col,
     acc = fmaf(w[e], x, acc);
   }
   return acc;
+}
+
+// Threefry-2x32(key = (k0, k1), counter = (c0, c1)): 20 rounds with the
+// key schedule injected every 4 rounds; all arithmetic wraps at 2^32.
+__device__ __forceinline__ uint2 threefry2x32(unsigned k0, unsigned k1,
+                                              unsigned c0, unsigned c1) {
+  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  unsigned x0 = c0 + ks[0];
+  unsigned x1 = c1 + ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = __funnelshift_l(x1, x1, rot[i % 2][j]);  // rotate left
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<unsigned>(i + 1);
+  }
+  return make_uint2(x0, x1);
 }
 
 }  // namespace ppnp

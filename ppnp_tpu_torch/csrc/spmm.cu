@@ -1,9 +1,12 @@
 // K1: out = A_w @ H (+ init) for a CSR matrix A, on Hopper (sm_90a).
 //
 // Replaces the TPU kernel ppnp_tpu/kernels/spmm.py::_spmm_kernel (launched
-// by spmm_pair_chunks). On the TPU the kernel turned gather and scatter
-// into one-hot MXU matmuls over the PairChunks packing; here a thread
-// group gathers H's rows directly from CSR, so no packing is needed.
+// by spmm_pair_chunks, and by its VJP _spmm_vjp_bwd on the transpose
+// packing). On the TPU the kernel turned gather and scatter into one-hot
+// MXU matmuls over the PairChunks packing; here a thread group gathers H's
+// rows directly from CSR, so no packing is needed, and the backward
+// dH = A_w^T g is this same kernel on the CSR of A^T with the same masked
+// weights in A^T's order.
 //
 // Bound on this card: bytes. Per call the kernel must read row_ptr, col
 // and w (4 + 8 B per edge), H once and init once, and write out once, and

@@ -32,22 +32,37 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ppnp_tpu_torch"
 
 # library name -> source file in csrc/ (each includes common.cuh)
-SOURCES = {"spmm": "spmm.cu", "fused": "fused.cu"}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# library name -> (launch function, its argument types); each returns a
+SOURCES = {"spmm": "spmm.cu", "fused": "fused.cu", "masks": "masks.cu"}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _L = ctypes.c_uint, ctypes.c_longlong
+# row_ptr, col, e_w_all; n_planes, nnz; h0, out, tmp; n, c; alpha;
+# niter, device; stream
+_FUSED_ARGS = [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 2 + [_F] + [_I] * 2 \
+    + [_P]
+# library name -> {launch function: its argument types}; each returns a
 # CUDA error code
 _ENTRY = {
     # row_ptr, col, w, h, init, out; n_rows, c, device; stream
-    "spmm": ("ppnp_spmm_csr", [_P] * 6 + [_I] * 3 + [_P]),
-    # row_ptr, col, e_w_all; n_planes, nnz; h0, out, tmp; n, c; alpha;
-    # niter, device; stream
-    "fused": ("ppnp_appnp_fused", [_P] * 3 + [_I] * 2 + [_P] * 3
-              + [_I] * 2 + [ctypes.c_float] + [_I] * 2 + [_P]),
+    "spmm": {"ppnp_spmm_csr": [_P] * 6 + [_I] * 3 + [_P]},
+    "fused": {"ppnp_appnp_fused": _FUSED_ARGS,
+              "ppnp_appnp_adjoint": _FUSED_ARGS},
+    "masks": {
+        # per layout: row_ptr, col, val, out; n_rows, nnz, transposed;
+        # then span, keys, n_keys, thresh, keep, scale, device, stream
+        "ppnp_edge_masks": ([_P] * 4 + [_I] * 3) * 2
+        + [_L, _P, _I, _U, _F, _F, _I, _P],
+        # k0, k1, n_rows, last, thresh, mask, device, stream
+        "ppnp_dropout_mask": [_U, _U, _L, _I, _U, _P, _I, _P],
+    },
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"spmm_csr": 0, "appnp_fused": 0}
+# K1 forward and backward (on the transpose), K3 forward and adjoint, the
+# id-keyed edge masks and the dense dropout mask
+LAUNCHES: Dict[str, int] = {"spmm_csr": 0, "spmm_csr_bwd": 0,
+                            "appnp_fused": 0, "appnp_adjoint": 0,
+                            "edge_masks": 0, "dropout_mask": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -124,10 +139,10 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             lib.ppnp_error_string.argtypes = [ctypes.c_int]
             lib.ppnp_error_string.restype = ctypes.c_char_p
-            fn_name, argtypes = _ENTRY[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _ENTRY[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 

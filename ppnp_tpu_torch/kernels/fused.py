@@ -1,17 +1,24 @@
-"""K3: all K APPNP steps in ONE kernel launch, forward mode.
+"""K3: all K APPNP steps in ONE kernel launch, forward and adjoint mode.
 
-The port of ``ppnp_tpu/kernels/fused.py::_fused_kernel`` in forward mode
-(its adjoint mode comes with the training slice). The kernel is
+The port of ``ppnp_tpu/kernels/fused.py::_fused_kernel``. The kernel is
 hand-written CUDA for Hopper, ``ppnp_tpu_torch/csrc/fused.cu``: one
-cooperative launch with a grid-wide barrier between iterations, H
-ping-ponging between two device buffers that stay in L2. The source
-states its bound and design. ``appnp_fused_plain`` is K plain K1 steps.
+cooperative launch with a grid-wide barrier between iterations, H (or the
+adjoint's M) ping-ponging between two device buffers that stay in L2. The
+source states its bound and design. ``appnp_fused_plain`` is K plain K1
+steps, or in adjoint mode K plain steps of the adjoint recursion.
 
 Operands follow ``appnp_fused``'s contract in the JAX package: ``h0`` in
 the operator's (permuted) row order, ``e_w_all`` one shared plane or
 ``niter`` planes of weights with (1 − α) already applied, ``None`` for
-(1 − α)·``a.val``. ``appnp_fused`` takes the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+(1 − α)·``a.val``. ``mode="adjoint"`` computes the train-mode VJP: pass
+the TRANSPOSE operator, the cotangent as ``h0`` and the planes in reverse
+iteration order; it returns ``α·Σ_{s<K} M_s + M_K`` with ``M_0 = g``,
+``M_{s+1} = A_s M_s`` (``fused.py:143-198``). ``appnp_fused_grad`` (the
+counterpart of ``make_appnp_fused_grad``) wires both into autograd.
+
+``appnp_fused`` takes the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises. Forward launches count as
+``appnp_fused``, adjoint ones as ``appnp_adjoint``.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ from ppnp_tpu_torch.kernels import build
 from ppnp_tpu_torch.kernels.spmm import spmm_csr_plain
 from ppnp_tpu_torch.ops.sparse import CsrMatrix
 
-__all__ = ["appnp_fused", "appnp_fused_plain"]
+__all__ = ["appnp_fused", "appnp_fused_plain", "appnp_fused_grad"]
+
+MODES = ("forward", "adjoint")
 
 
 def _planes(a: CsrMatrix, alpha: float, niter: int,
@@ -42,22 +51,35 @@ def _planes(a: CsrMatrix, alpha: float, niter: int,
 
 
 def appnp_fused_plain(a: CsrMatrix, h0: torch.Tensor, *, alpha: float,
-                      niter: int, e_w_all: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
-    """K plain K1 steps: ``H ← A_k H + α·H⁰``."""
+                      niter: int, e_w_all: Optional[torch.Tensor] = None,
+                      mode: str = "forward") -> torch.Tensor:
+    """K plain K1 steps: ``H ← A_k H + α·H⁰``; in adjoint mode
+    ``M ← A_s M`` with ``out = α·(M_0 + … + M_{K-1}) + M_K``."""
     planes = _planes(a, alpha, niter, e_w_all)
+
+    def plane(k):
+        return planes[k if planes.shape[0] > 1 else 0]
+
+    if mode == "adjoint":
+        out, m = alpha * h0, h0
+        for s in range(niter):
+            m = spmm_csr_plain(a, m, plane(s))
+            out = out + (alpha if s + 1 < niter else 1.0) * m
+        return out
     init = alpha * h0
     h = h0
     for k in range(niter):
-        h = spmm_csr_plain(a, h, planes[k if planes.shape[0] > 1 else 0],
-                           init)
+        h = spmm_csr_plain(a, h, plane(k), init)
     return h
 
 
 def appnp_fused(a: CsrMatrix, h0: torch.Tensor, *, alpha: float,
-                niter: int, e_w_all: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-    """K APPNP steps ``H_{k+1} = A_k H_k + α·H⁰`` → (n, c) float32."""
+                niter: int, e_w_all: Optional[torch.Tensor] = None,
+                mode: str = "forward") -> torch.Tensor:
+    """K APPNP steps ``H_{k+1} = A_k H_k + α·H⁰`` → (n, c) float32, or
+    their adjoint (``mode="adjoint"``, module docstring)."""
+    if mode not in MODES:
+        raise ValueError(f"appnp_fused: unknown mode {mode!r}")
     if a.n_rows != a.n_cols:
         raise ValueError("appnp_fused: the operator must be square")
     if h0.dim() != 2 or h0.dtype != torch.float32 \
@@ -80,20 +102,67 @@ def appnp_fused(a: CsrMatrix, h0: torch.Tensor, *, alpha: float,
         raise ValueError("appnp_fused: operands exceed the int32 range")
     if h0.device.type == "cpu":
         return appnp_fused_plain(a, h0, alpha=alpha, niter=niter,
-                                 e_w_all=planes)
+                                 e_w_all=planes, mode=mode)
     if h0.device.type != "cuda":
         raise ValueError(f"appnp_fused: unsupported device {h0.device}")
     n, c = h0.shape
     out = torch.empty((n, c), dtype=torch.float32, device=h0.device)
     if n == 0 or c == 0:
         return out
-    tmp = torch.empty_like(out) if niter > 1 else out
+    adjoint = mode == "adjoint"
+    # scratch: the forward's second H buffer; the adjoint's two M buffers
+    # (M_K is never stored, so niter <= 2 needs one)
+    n_tmp = (2 if niter > 2 else 1) if adjoint else (1 if niter > 1 else 0)
+    tmp = (torch.empty((n_tmp, n, c), dtype=torch.float32, device=h0.device)
+           if n_tmp else out)
     lib = build.load_library("fused")
-    err = lib.ppnp_appnp_fused(
+    launch = lib.ppnp_appnp_adjoint if adjoint else lib.ppnp_appnp_fused
+    err = launch(
         a.row_ptr.data_ptr(), a.col.data_ptr(), planes.data_ptr(),
         planes.shape[0], a.nnz, h0.data_ptr(), out.data_ptr(),
         tmp.data_ptr(), n, c, float(alpha), niter, h0.device.index or 0,
         torch.cuda.current_stream(h0.device).cuda_stream)
-    build.check_error(lib, err, "appnp_fused cooperative launch")
-    build.LAUNCHES["appnp_fused"] += 1
+    build.check_error(lib, err, f"appnp_fused {mode} cooperative launch")
+    build.LAUNCHES["appnp_adjoint" if adjoint else "appnp_fused"] += 1
     return out
+
+
+class _FusedGrad(torch.autograd.Function):
+    """K3 forward whose backward is K3 on the transpose (module doc)."""
+
+    @staticmethod
+    def forward(ctx, h0, a, a_t, planes, planes_t, alpha, niter):
+        ctx.a_t, ctx.planes_t = a_t, planes_t
+        ctx.alpha, ctx.niter = alpha, niter
+        return appnp_fused(a, h0, alpha=alpha, niter=niter, e_w_all=planes)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        rev = (None if ctx.planes_t is None
+               else torch.flip(ctx.planes_t, dims=(0,)))
+        if rev is not None and rev.shape[0] > 1:
+            dh0 = appnp_fused(ctx.a_t, g, alpha=ctx.alpha, niter=ctx.niter,
+                              e_w_all=rev, mode="adjoint")
+        else:
+            # one operator for every iteration: the self-adjoint form, K3
+            # forward on (1 - alpha)·Aᵀ (fused.py:326-328)
+            dh0 = appnp_fused(ctx.a_t, g, alpha=ctx.alpha, niter=ctx.niter,
+                              e_w_all=rev)
+        return dh0, None, None, None, None, None, None
+
+
+def appnp_fused_grad(a: CsrMatrix, a_t: CsrMatrix, h0: torch.Tensor, *,
+                     alpha: float, niter: int,
+                     e_w_all: Optional[torch.Tensor] = None,
+                     e_w_t_all: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Differentiable K3 (``make_appnp_fused_grad``, ``fused.py:298-340``):
+    ``h0`` (+ per-iteration planes of BOTH layouts, or ``None`` for eval)
+    → H_K; the cotangent flows to ``h0`` only, through the adjoint on
+    ``a_t`` with the transpose planes reversed."""
+    if (e_w_all is None) != (e_w_t_all is None):
+        raise ValueError("appnp_fused_grad: pass planes for both layouts "
+                         "or for neither")
+    return _FusedGrad.apply(h0.contiguous(), a, a_t, e_w_all, e_w_t_all,
+                            float(alpha), int(niter))

@@ -1,10 +1,19 @@
-"""K1: ``out = A_w @ H (+ init)`` for a CSR matrix, square or rectangular.
+"""K1: ``out = A_w @ H (+ init)`` for a CSR matrix, square or rectangular,
+and its backward.
 
-The port of ``ppnp_tpu/kernels/spmm.py::_spmm_kernel`` (the forward; its
-transpose-packing backward comes with the training slice). The kernel is
+The port of ``ppnp_tpu/kernels/spmm.py::_spmm_kernel``. The kernel is
 hand-written CUDA for Hopper, ``ppnp_tpu_torch/csrc/spmm.cu``, which
 states its bound and design; ``spmm_csr_plain`` is the same function in
 plain PyTorch (gather + ``index_add_``).
+
+The backward (``spmm_grad``, the counterpart of ``_spmm_vjp``,
+``spmm.py:454-501``) is the same kernel on the CSR of Aᵀ with the SAME
+(possibly masked) weights in the transpose's order: ``dH = A_wᵀ·g``,
+``d(init) = g``, nothing to the weights (Â is a fixed operator and the
+masks are not differentiable). Each output row of the backward sums its
+edges in CSR order too, so gradients need no atomics and come out the
+same on every run. Forward launches count as ``spmm_csr``, backward ones
+as ``spmm_csr_bwd``.
 
 ``spmm_csr`` takes the plain version only for tensors on the CPU. For
 CUDA tensors it launches the kernel or raises; it never falls back.
@@ -19,7 +28,7 @@ import torch
 from ppnp_tpu_torch.kernels import build
 from ppnp_tpu_torch.ops.sparse import CsrMatrix
 
-__all__ = ["spmm_csr", "spmm_csr_plain"]
+__all__ = ["spmm_csr", "spmm_csr_plain", "spmm_csr_bwd", "spmm_grad"]
 
 
 def spmm_csr_plain(a: CsrMatrix, h: torch.Tensor,
@@ -70,6 +79,18 @@ def spmm_csr(a: CsrMatrix, h: torch.Tensor, w: Optional[torch.Tensor] = None,
     ``w`` overrides the stored values (CSR order), as ``e_w`` does for
     the TPU kernel; rows without edges produce ``init`` (or 0).
     """
+    return _spmm(a, h, w, init, "spmm_csr")
+
+
+def spmm_csr_bwd(a_t: CsrMatrix, g: torch.Tensor,
+                 w_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The backward's ``A_wᵀ @ g`` through the CSR of Aᵀ (counted as
+    ``spmm_csr_bwd``)."""
+    return _spmm(a_t, g, w_t, None, "spmm_csr_bwd")
+
+
+def _spmm(a: CsrMatrix, h: torch.Tensor, w: Optional[torch.Tensor],
+          init: Optional[torch.Tensor], counter: str) -> torch.Tensor:
     _check(a, h, w, init)
     if h.device.type == "cpu":
         return spmm_csr_plain(a, h, w, init)
@@ -87,5 +108,35 @@ def spmm_csr(a: CsrMatrix, h: torch.Tensor, w: Optional[torch.Tensor] = None,
         a.n_rows, c, h.device.index or 0,
         torch.cuda.current_stream(h.device).cuda_stream)
     build.check_error(lib, err, "spmm_csr launch")
-    build.LAUNCHES["spmm_csr"] += 1
+    build.LAUNCHES[counter] += 1
     return out
+
+
+class _SpmmGrad(torch.autograd.Function):
+    """``A_w @ h + init`` whose backward runs K1 on the transpose."""
+
+    @staticmethod
+    def forward(ctx, h, init, a, a_t, w, w_t):
+        ctx.a_t, ctx.w_t = a_t, w_t
+        return spmm_csr(a, h, w, init)
+
+    @staticmethod
+    def backward(ctx, g):
+        dh = (spmm_csr_bwd(ctx.a_t, g.contiguous(), ctx.w_t)
+              if ctx.needs_input_grad[0] else None)
+        dinit = g if ctx.needs_input_grad[1] else None
+        return dh, dinit, None, None, None, None
+
+
+def spmm_grad(a: CsrMatrix, a_t: CsrMatrix, h: torch.Tensor,
+              w: Optional[torch.Tensor] = None,
+              w_t: Optional[torch.Tensor] = None,
+              init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable ``A_w @ h (+ init)``: forward through ``a``,
+    backward ``dh = A_wᵀ g`` through ``a_t`` (the CSR of Aᵀ) with ``w_t``,
+    the same weights in ``a_t``'s order (``None``: ``a_t.val``), and
+    ``d(init) = g``."""
+    if (a_t.n_rows, a_t.n_cols, a_t.nnz) != (a.n_cols, a.n_rows, a.nnz):
+        raise ValueError("spmm_grad: a_t is not shaped as the transpose "
+                         "of a")
+    return _SpmmGrad.apply(h.contiguous(), init, a, a_t, w, w_t)

@@ -6,10 +6,13 @@ parameters as a list of ``(d_in, d_out)`` weight matrices; the port keeps
 them in an ``MLP`` module of bias-free ``nn.Linear`` layers, whose weights
 are ``(d_out, d_in)``. ``params_from_jax`` converts the former into the
 latter, so both packages can compute the same thing from the same
-weights.
+weights, and ``init_mlp_params(key=...)`` draws the JAX package's initial
+weights from the same key.
 
-Eval mode only in this slice: ``train=True`` raises (dropout draws come
-with the training slice, ROADMAP.md).
+Train mode draws the JAX package's dropout masks from the same keys
+(``ops/prng.py``): ``ppnp_forward`` splits its key into (MLP,
+propagation), ``mlp_forward`` splits the MLP key per layer; dropout
+precedes every layer, id-keyed on X's values when X is sparse.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ppnp_tpu_torch.device import resolve_device
-from ppnp_tpu_torch.ops.propagation import TRAINING_TODO
+from ppnp_tpu_torch.ops import prng
+from ppnp_tpu_torch.ops.dropout import dropout
 from ppnp_tpu_torch.ops.sparse_input import SparseInput
 
 __all__ = ["MLP", "init_mlp_params", "params_from_jax", "mlp_forward",
@@ -52,34 +56,50 @@ class MLP(nn.Module):
         model.load_state_dict(state)
         return model
 
-    def forward(self, x, *, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(TRAINING_TODO)
+    def forward(self, x, *, key=None, train: bool = False,
+                drop_prob: float = 0.5) -> torch.Tensor:
+        """Local logits; in train mode dropout (from ``key``) precedes
+        every layer (``ppnp_tpu/models/appnp.py:50-96``)."""
+        use_drop = bool(train and drop_prob > 0.0 and key is not None)
+        n_layers = len(self.layers)
+        keys = prng.split(key, n_layers) if use_drop else None
         h = x
-        last = len(self.layers) - 1
         for i, lin in enumerate(self.layers):
             if i == 0 and isinstance(x, SparseInput):
-                h = x.matmul(lin.weight.t())
+                h = x.matmul(lin.weight.t(),
+                             key=keys[0] if use_drop else None,
+                             train=train, drop_prob=drop_prob)
             else:
+                if use_drop:
+                    h = dropout(keys[i], h, drop_prob)
                 h = F.linear(h, lin.weight)
-            if i < last:
+            if i < n_layers - 1:
                 h = F.relu(h)
         return h
 
 
 def init_mlp_params(n_features: int, hidden_units: Sequence[int],
-                    n_classes: int, *,
+                    n_classes: int, *, key=None,
                     generator: Optional[torch.Generator] = None,
                     device=None) -> MLP:
-    """Glorot-uniform weights for [n_features, *hidden_units, n_classes].
+    """Glorot-uniform weights for [n_features, *hidden_units, n_classes]
+    on ``device`` (default cuda).
 
-    Draws on the CPU from ``generator`` (so a seed gives the same weights
-    on every device), then moves the module to ``device`` (default
-    cuda). Not bit-equal to ``jax.random``; use ``params_from_jax`` for
-    weights shared with the JAX package.
+    With ``key`` (a (2,) uint32 key, ``ops/prng.py``) the weights are
+    those of ``ppnp_tpu.models.appnp.init_mlp_params(key, ...)`` bit for
+    bit: ``split(key, n_layers)`` and one ``glorot_uniform`` per layer.
+    Otherwise they are drawn on the CPU from ``generator`` (so a seed
+    gives the same weights on every device), not bit-equal to
+    ``jax.random``.
     """
     dev = resolve_device(device)
     dims = [n_features, *hidden_units, n_classes]
+    if key is not None:
+        keys = prng.split(key, len(dims) - 1)
+        return params_from_jax(
+            [prng.glorot_uniform(k, (d_in, d_out))
+             for k, d_in, d_out in zip(keys, dims[:-1], dims[1:])],
+            device=dev)
     model = MLP(dims)
     with torch.no_grad():
         for lin in model.layers:
@@ -101,17 +121,25 @@ def params_from_jax(params: Sequence[np.ndarray], device=None) -> MLP:
     return model.to(dev)
 
 
-def mlp_forward(model: MLP, x, *, train: bool = False) -> torch.Tensor:
+def mlp_forward(model: MLP, x, *, key=None, train: bool = False,
+                drop_prob: float = 0.5) -> torch.Tensor:
     """Local (pre-propagation) logits H_local for all n nodes."""
-    return model(x, train=train)
+    return model(x, key=key, train=train, drop_prob=drop_prob)
 
 
 def ppnp_forward(model: MLP, x, propagator,
-                 idx: Optional[torch.Tensor] = None, *,
-                 train: bool = False) -> torch.Tensor:
-    """Full PPNP forward: MLP → propagate → select idx → log_softmax."""
-    h_local = mlp_forward(model, x, train=train)
-    z = propagator(h_local, idx, train=train)
+                 idx: Optional[torch.Tensor] = None, *, key=None,
+                 train: bool = False, drop_prob: float = 0.5
+                 ) -> torch.Tensor:
+    """Full PPNP forward: MLP → propagate → select idx → log_softmax,
+    with ``key_mlp, key_prop = split(key)`` (``appnp.py:104-107``)."""
+    if key is not None:
+        key_mlp, key_prop = prng.split(key)
+    else:
+        key_mlp = key_prop = None
+    h_local = mlp_forward(model, x, key=key_mlp, train=train,
+                          drop_prob=drop_prob)
+    z = propagator(h_local, idx, key=key_prop, train=train)
     return F.log_softmax(z, dim=-1)
 
 

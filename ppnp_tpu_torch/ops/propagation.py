@@ -1,22 +1,29 @@
-"""Power-iteration PPR propagation (APPNP), eval mode.
+"""Power-iteration PPR propagation (APPNP), eval and train mode.
 
 Counterpart of ``ppnp_tpu/ops/propagation.py::PPRPowerIteration``:
-``H ← (1-α)·Â·H + α·H⁰`` repeated K times, as an ``nn.Module`` with the
-JAX package's three backends:
+``H ← (1-α)·Â_drop·H + α·H⁰`` repeated K times, with a fresh edge-dropout
+mask per iteration in train mode, as an ``nn.Module`` with the JAX
+package's three backends:
 
 - ``xla``: plain torch ops over the padded ``EdgeList`` (gather +
-  ``index_add_``), the counterpart of ``spmm_edge_list``; no kernel;
-- ``pallas``: K1 (``kernels.spmm.spmm_csr``) once per step, with (1-α)
-  folded into the edge weights and α·H⁰ seeding the output;
-- ``fused``: K3 (``kernels.fused.appnp_fused``), all K steps in one launch.
+  ``index_add_``), the counterpart of ``spmm_edge_list``; in train mode
+  ``keys = split(key, K)`` and each step masks the edge values by SLOT
+  with ``edge_dropout`` (``propagation.py:110-118``);
+- ``pallas``: K1 once per step, with (1-α) folded into the edge weights
+  and α·H⁰ seeding the output; its backward is K1 on the CSR of Âᵀ. In
+  train mode each step's weights are ``(1-α)·edge_dropout_by_id(k, Â)``
+  and the same mask in Âᵀ's order (``propagation.py:167-186``);
+- ``fused``: K3, all K steps in one launch, its backward K3's adjoint on
+  Âᵀ; in train mode with K planes per layout (``propagation.py:266-282``).
+
+The id-keyed planes of both layouts for all K steps come from one launch
+of the mask kernel (``kernels/masks.py``), computed ``val / keep`` first
+and then times (1-α), as the JAX package rounds them.
 
 The ``pallas`` and ``fused`` arms work in the operator's RCM order: H⁰ is
 permuted once before the loop and the result once after it, as the JAX
 package does (``propagation.py:140-147,197-199``). CSR needs no row
 padding, so unlike the PairChunks path nothing is padded.
-
-Training (edge dropout, the backward) is not ported yet: ``train=True``
-raises (ROADMAP.md, "Still to port", item 1: Training).
 """
 
 from __future__ import annotations
@@ -26,22 +33,24 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ppnp_tpu_torch.kernels.fused import appnp_fused
-from ppnp_tpu_torch.kernels.spmm import spmm_csr
+from ppnp_tpu_torch.kernels.fused import appnp_fused_grad
+from ppnp_tpu_torch.kernels.masks import edge_masks
+from ppnp_tpu_torch.kernels.spmm import spmm_grad
+from ppnp_tpu_torch.ops import prng
+from ppnp_tpu_torch.ops.dropout import edge_dropout
 from ppnp_tpu_torch.ops.sparse import CsrMatrix, EdgeList
 
-__all__ = ["spmm_edge_list", "PPRPowerIteration", "TRAINING_TODO"]
-
-TRAINING_TODO = ("training is not ported yet (ROADMAP.md, \"Still to "
-                 "port\", item 1: Training)")
+__all__ = ["spmm_edge_list", "PPRPowerIteration"]
 
 BACKENDS = ("xla", "pallas", "fused")
 
 
-def spmm_edge_list(edges: EdgeList, h: torch.Tensor) -> torch.Tensor:
+def spmm_edge_list(edges: EdgeList, h: torch.Tensor,
+                   w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Â @ H via gather + ``index_add_`` over the padded edge list
-    (padding edges have w == 0)."""
-    gathered = h.index_select(0, edges.src) * edges.w[:, None]
+    (padding edges have w == 0); ``w`` overrides the stored values."""
+    w = edges.w if w is None else w
+    gathered = h.index_select(0, edges.src) * w[:, None]
     out = h.new_zeros((edges.n_rows, h.shape[1]))
     return out.index_add_(0, edges.dst, gathered)
 
@@ -50,65 +59,86 @@ class PPRPowerIteration(nn.Module):
     """APPNP propagation operator: K steps of H ← (1-α)ÂH + αH⁰.
 
     ``edges`` serves the ``xla`` arm, ``csr`` (Â under the RCM
-    permutation) the ``pallas`` and ``fused`` arms.
+    permutation) and ``csr_t`` (the CSR of its transpose, the backward's
+    operator) the ``pallas`` and ``fused`` arms.
     """
 
     def __init__(self, *, alpha: float = 0.1, niter: int = 10,
                  drop_prob: float = 0.5, backend: str = "xla",
                  edges: Optional[EdgeList] = None,
-                 csr: Optional[CsrMatrix] = None):
+                 csr: Optional[CsrMatrix] = None,
+                 csr_t: Optional[CsrMatrix] = None):
         super().__init__()
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; the port has "
                              f"{BACKENDS}")
         if backend == "xla" and edges is None:
             raise ValueError("backend 'xla' needs edges")
-        if backend != "xla" and csr is None:
-            raise ValueError(f"backend {backend!r} needs csr")
+        if backend != "xla" and (csr is None or csr_t is None):
+            raise ValueError(f"backend {backend!r} needs csr and csr_t")
         self.alpha = float(alpha)
         self.niter = int(niter)
         self.drop_prob = float(drop_prob)
         self.backend = backend
         self.edges = edges
         self.csr = csr
-        # (1-α)·Â's values, computed once: the weight plane of every step.
+        self.csr_t = csr_t
+        # (1-α)·Â's values in both layouts, computed once: the weight
+        # planes of every eval step.
         self.w_scaled = (None if csr is None
                          else ((1.0 - self.alpha) * csr.val).contiguous())
+        self.w_t_scaled = (None if csr_t is None
+                           else ((1.0 - self.alpha) * csr_t.val).contiguous())
 
     @property
     def device(self) -> torch.device:
         return (self.edges.w if self.edges is not None
                 else self.csr.val).device
 
-    def propagate(self, h0: torch.Tensor, *, train: bool = False
-                  ) -> torch.Tensor:
-        """Run K power-iteration steps over all n rows of ``h0``."""
-        if train:
-            raise NotImplementedError(TRAINING_TODO)
+    def propagate(self, h0: torch.Tensor, *, key=None,
+                  train: bool = False) -> torch.Tensor:
+        """Run K power-iteration steps over all n rows of ``h0``; in train
+        mode with a fresh mask per step drawn from ``key`` (a (2,) uint32
+        host key, ``ops/prng.py``)."""
+        apply_drop = bool(train and self.drop_prob > 0.0 and key is not None)
+        keys = prng.split(key, self.niter) if apply_drop else None
+        one_minus_alpha = 1.0 - self.alpha
         if self.backend == "xla":
             alpha_h0 = self.alpha * h0
             h = h0
-            for _ in range(self.niter):
-                h = (1.0 - self.alpha) * spmm_edge_list(self.edges, h) \
+            for k in range(self.niter):
+                w = (edge_dropout(keys[k], self.edges.w, self.drop_prob)
+                     if apply_drop else None)
+                h = one_minus_alpha * spmm_edge_list(self.edges, h, w) \
                     + alpha_h0
             return h
-        a = self.csr
+        a, a_t = self.csr, self.csr_t
         hp = h0.index_select(0, a.perm) if a.perm is not None else h0
         hp = hp.contiguous()
+        planes = planes_t = None
+        if apply_drop:
+            planes, planes_t = edge_masks(keys, a, a_t,
+                                          keep=1.0 - self.drop_prob,
+                                          scale=one_minus_alpha)
         if self.backend == "fused":
-            hp = appnp_fused(a, hp, alpha=self.alpha, niter=self.niter,
-                             e_w_all=self.w_scaled[None])
+            if planes is None:
+                planes, planes_t = self.w_scaled[None], self.w_t_scaled[None]
+            hp = appnp_fused_grad(a, a_t, hp, alpha=self.alpha,
+                                  niter=self.niter, e_w_all=planes,
+                                  e_w_t_all=planes_t)
         else:
             init = self.alpha * hp  # α·H⁰, packed order
-            for _ in range(self.niter):
-                hp = spmm_csr(a, hp, self.w_scaled, init)
+            for k in range(self.niter):
+                w, w_t = ((planes[k], planes_t[k]) if apply_drop
+                          else (self.w_scaled, self.w_t_scaled))
+                hp = spmm_grad(a, a_t, hp, w, w_t, init)
         return hp.index_select(0, a.iperm) if a.iperm is not None else hp
 
     def forward(self, h_local: torch.Tensor,
-                idx: Optional[torch.Tensor] = None, *,
+                idx: Optional[torch.Tensor] = None, *, key=None,
                 train: bool = False) -> torch.Tensor:
         """Propagate local predictions; select ``idx`` rows afterwards."""
-        h = self.propagate(h_local, train=train)
+        h = self.propagate(h_local, key=key, train=train)
         if idx is not None:
             h = h.index_select(0, idx)
         return h

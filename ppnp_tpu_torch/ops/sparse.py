@@ -13,9 +13,17 @@ equal to the reference's, which its slot-ordered dropout masks depend on.
 on the host. A square operator is built under the SAME reverse
 Cuthill-McKee permutation the JAX builders pack with
 (``ppnp_tpu/builders.py``), so packed coordinates — and with them the
-canonical edge id ``row·span + col`` of later slices — line up. The port
-does not keep the TPU's PairChunks layout: it existed to turn gather and
-scatter into one-hot MXU matmuls, and a CUDA kernel gathers directly.
+canonical edge id ``row·span + col`` — line up. The port does not keep
+the TPU's PairChunks layout: it existed to turn gather and scatter into
+one-hot MXU matmuls, and a CUDA kernel gathers directly.
+
+Edge ids (``ppnp_tpu/ops/pairchunks.py:779-807``): an entry at (r, c) of
+a forward matrix is edge ``r·span + c``, with ``span`` = max(n_rows,
+n_cols) of the forward matrix (n for Â after RCM, max(n, f) for X). The
+backward's operator is the CSR of the transpose (``csr_transpose``); its
+entry at (r, c) is edge ``c·span + r``, the id of the same edge in the
+forward matrix (``transpose_ids``, ``pairchunks.py:823-831``). Ids are
+computed from (row, col) where they are needed; none is stored.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import scipy.sparse as sp
 import torch
 
 __all__ = ["EdgeList", "edge_list_from_scipy", "CsrMatrix",
-           "csr_from_scipy", "rcm_permutation"]
+           "csr_from_scipy", "csr_transpose", "rcm_permutation"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -86,7 +94,8 @@ class CsrMatrix:
 
     ``perm`` (packed row → original row) and ``iperm`` are set when a
     square matrix was built under a row/col permutation; callers apply
-    them once outside their hot loops.
+    them once outside their hot loops. ``span`` and ``transposed`` fix
+    the canonical id of each stored entry (module docstring).
     """
 
     row_ptr: torch.Tensor   # int32 [n_rows + 1]
@@ -96,6 +105,12 @@ class CsrMatrix:
     n_cols: int
     perm: Optional[torch.Tensor] = None   # int32 [n_rows] or None
     iperm: Optional[torch.Tensor] = None  # int32 [n_rows] or None
+    span: int = 0             # edge-id span; 0 → max(n_rows, n_cols)
+    transposed: bool = False  # entry (r, c) is edge (c, r) of the forward
+
+    @property
+    def id_span(self) -> int:
+        return self.span or max(self.n_rows, self.n_cols)
 
     @property
     def nnz(self) -> int:
@@ -110,6 +125,45 @@ class CsrMatrix:
         counts = (self.row_ptr[1:] - self.row_ptr[:-1]).long()
         return torch.repeat_interleave(
             torch.arange(self.n_rows, device=self.device), counts)
+
+    def to(self, device) -> "CsrMatrix":
+        """A copy on ``device`` (the same matrix, ids and permutation)."""
+        def move(t):
+            return None if t is None else t.to(device)
+
+        return dataclasses.replace(
+            self, row_ptr=move(self.row_ptr), col=move(self.col),
+            val=move(self.val), perm=move(self.perm), iperm=move(self.iperm))
+
+    def edge_ids(self) -> torch.Tensor:
+        """The canonical id of every stored entry (int64 [nnz], CSR
+        order): ``r·span + c``, or ``c·span + r`` for a transpose."""
+        r, c = self.row_ids(), self.col.long()
+        if self.transposed:
+            r, c = c, r
+        return r * self.id_span + c
+
+
+def csr_transpose(a: CsrMatrix) -> CsrMatrix:
+    """The CSR of Aᵀ on A's device: the operator of the backward pass,
+    whose entries carry the ids of A's (same ``span``, flipped
+    ``transposed``). A permuted square A keeps its ``perm``/``iperm``:
+    Aᵀ lives in the same packed coordinates."""
+    host = sp.csr_matrix(
+        (a.val.cpu().numpy(), a.col.cpu().numpy(), a.row_ptr.cpu().numpy()),
+        shape=(a.n_rows, a.n_cols))
+    t = host.T.tocsr()
+    t.sort_indices()
+
+    def dev(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
+            a.device)
+
+    return CsrMatrix(
+        row_ptr=dev(t.indptr, np.int32), col=dev(t.indices, np.int32),
+        val=dev(t.data, np.float32), n_rows=a.n_cols, n_cols=a.n_rows,
+        perm=a.perm, iperm=a.iperm, span=a.id_span,
+        transposed=not a.transposed)
 
 
 def csr_from_scipy(mat: sp.spmatrix, *, device: torch.device,

@@ -1,11 +1,40 @@
-"""The serving half of ``ppnp_tpu/train.py``: ``prepare_attr_input`` and
-``get_predictions``.
+"""Training loop: full-batch Adam with dual-criterion early stopping, and
+the serving helpers ``prepare_attr_input`` and ``get_predictions``.
 
-``train_model`` (Adam, early stopping, dropout) comes with the training
-slice (ROADMAP.md, "Still to port", item 1: Training).
+Counterpart of ``ppnp_tpu/train.py``, with the same signature, key
+schedule and result dict:
+
+- splits from ``preprocessing.gen_splits``;
+- ``key_init, key_epochs = split(PRNGKey(seed))``, the epoch key
+  ``fold_in(key_epochs, e)`` (``train.py:139,396-397``), weights from
+  ``init_mlp_params(key_init, ...)`` — so the port draws the JAX
+  package's weights and masks bit for bit;
+- loss = NLL on ``idx_train`` + ``reg_lambda/2·‖W₁‖²``; one Adam step per
+  epoch (``optim.Adam``, optax's arithmetic); then the eval forward on
+  the stopping set;
+- best snapshot: higher stopping accuracy, ties to lower loss
+  (``train.py:164-174``); ``EarlyStopping.check`` decides when to stop;
+- checkpoints every ``checkpoint_every`` epochs (at the end of an epoch
+  chunk, as the JAX package saves) and at the end, ``resume`` from the
+  latest; the best weights are restored for the final evaluation.
+
+What differs, and why: the epoch loop is a Python loop, one epoch at a
+time. The JAX package ran ``epoch_chunk`` epochs inside one compiled
+``lax.scan`` with a replay of the chunk at an early stop and batched
+host transfers (``_host_scalars``), to amortise the TPU's dispatch and
+transfer latency; PyTorch on the card runs eagerly, and one epoch reads
+its three scalars with one device-to-host copy. ``chunk_times`` still
+groups epochs by ``epoch_chunk``. ``profile_dir`` is not ported yet.
+
+Matmuls run in full float32 (``allow_tf32`` off), as the JAX reference
+computes at f32.
 """
 
 from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -13,20 +42,41 @@ import torch
 
 from ppnp_tpu_torch import preprocessing
 from ppnp_tpu_torch.data.sparsegraph import SparseGraph
-from ppnp_tpu_torch.models.appnp import MLP, ppnp_forward
-from ppnp_tpu_torch.ops.sparse import csr_from_scipy
+from ppnp_tpu_torch.earlystopping import EarlyStopping
+from ppnp_tpu_torch.earlystopping import stopping_args as \
+    default_stopping_args
+from ppnp_tpu_torch.metrics import JsonlWriter, accuracy, macro_f1
+from ppnp_tpu_torch.models.appnp import (MLP, init_mlp_params, l2_reg,
+                                         ppnp_forward)
+from ppnp_tpu_torch.ops import prng
+from ppnp_tpu_torch.ops.sparse import csr_from_scipy, csr_transpose
 from ppnp_tpu_torch.ops.sparse_input import SparseInput
+from ppnp_tpu_torch.optim import Adam
 
-__all__ = ["get_predictions", "prepare_attr_input", "BF16_TODO"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["train_model", "get_predictions", "prepare_attr_input",
+           "default_idx_split_args", "BF16_TODO", "PROFILE_TODO"]
 
 BF16_TODO = ("x_dtype=bfloat16 is not ported yet (ROADMAP.md, \"Still to "
              "port\", item 7: bfloat16 attributes)")
+PROFILE_TODO = ("profile_dir / --profile is not ported yet (ROADMAP.md, "
+                "\"Still to port\", item 8: TensorBoard metrics and "
+                "profiler traces)")
+
+default_idx_split_args: Dict[str, int] = {
+    "ntrain_per_class": 20,
+    "nstopping": 500,
+    "nknown": 1500,
+    "seed": 2413340114,
+}
 
 
 def prepare_attr_input(graph: SparseGraph, propagator, *,
                        x_format: str = "auto", x_dtype=None):
     """L1-normalize the attribute matrix and stage it on the propagator's
-    device, dense or as a ``SparseInput`` (fc1 through K1).
+    device, dense or as a ``SparseInput`` (fc1 through K1; X and Xᵀ in
+    CSR).
 
     ``x_format``: "dense" densifies X (fc1 is then one f32
     ``torch.matmul``); "sparse" keeps it CSR; "auto" picks sparse exactly
@@ -53,11 +103,37 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
         raise ValueError(f"unknown x_format {x_format!r} "
                          "(expected 'auto', 'dense' or 'sparse')")
     if use_sparse:
-        return SparseInput(csr=csr_from_scipy(attr_norm, device=device))
+        csr = csr_from_scipy(attr_norm, device=device)
+        return SparseInput(csr=csr, csr_t=csr_transpose(csr))
     x_np = (np.asarray(attr_norm.todense(), dtype=np.float32)
             if sp.issparse(attr_norm)
             else np.asarray(attr_norm, dtype=np.float32))
     return torch.from_numpy(x_np).to(device)
+
+
+def _check_prepared_input(x, graph: SparseGraph, *, x_format: str,
+                          x_dtype) -> None:
+    """Validate a caller-staged ``x_prepared`` (``train.py:264-317``):
+    a staged X silently overrides ``x_format``/``x_dtype``."""
+    is_sparse = isinstance(x, SparseInput)
+    if x_format == "sparse" and not is_sparse:
+        raise ValueError("x_prepared is a dense tensor but x_format="
+                         "'sparse' was requested; re-stage with "
+                         "prepare_attr_input(..., x_format='sparse')")
+    if x_format == "dense" and is_sparse:
+        raise ValueError("x_prepared is a SparseInput but x_format="
+                         "'dense' was requested; re-stage with "
+                         "prepare_attr_input(..., x_format='dense')")
+    if tuple(x.shape) != tuple(graph.attr_matrix.shape):
+        raise ValueError(
+            f"x_prepared has shape {tuple(x.shape)} but this graph needs "
+            f"{tuple(graph.attr_matrix.shape)}; it was staged for a "
+            "different graph")
+    if x_dtype not in (None, "float32", torch.float32):
+        raise NotImplementedError(BF16_TODO)
+    if not is_sparse and x.dtype != torch.float32:
+        raise ValueError(f"x_prepared was staged as {x.dtype}; the port "
+                         "trains on float32 X")
 
 
 def get_predictions(model: MLP, x, propagator) -> np.ndarray:
@@ -71,3 +147,249 @@ def get_predictions(model: MLP, x, propagator) -> np.ndarray:
     with torch.no_grad():
         logp = ppnp_forward(model, x, propagator, None, train=False)
         return logp.argmax(dim=-1).cpu().numpy()
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    # sum · f32(1/n), as XLA computes jnp.mean; a true division rounds
+    # the last bit of a stopping accuracy such as 14/60 differently
+    return x.sum() * (1.0 / x.numel())
+
+
+def _nll(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return -_mean(log_probs.gather(1, labels[:, None]))
+
+
+def _snapshot(model: MLP):
+    return [lin.weight.detach().clone() for lin in model.layers]
+
+
+def _state_dict(weights) -> Dict[str, torch.Tensor]:
+    return {f"layers.{i}.weight": w.detach().cpu()
+            for i, w in enumerate(weights)}
+
+
+def train_model(
+    graph: SparseGraph,
+    propagator,
+    *,
+    hidden_units: Sequence[int] = (64,),
+    drop_prob: float = 0.5,
+    learning_rate: float = 0.01,
+    reg_lambda: float = 5e-3,
+    idx_split_args: Optional[Dict[str, int]] = None,
+    stopping_args: Optional[Dict[str, Any]] = None,
+    test: bool = False,
+    seed: int = 0,
+    print_interval: int = 20,
+    metrics: Optional[JsonlWriter] = None,
+    dtype=None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 500,
+    resume: bool = False,
+    epoch_chunk: int = 50,
+    profile_dir: Optional[str] = None,
+    x_dtype=None,
+    x_format: str = "auto",
+    x_prepared=None,
+) -> Tuple[MLP, Dict[str, Any]]:
+    """Train PPNP/APPNP on a graph on the propagator's device; returns
+    (model, result_dict) with the keys of ``ppnp_tpu.train.train_model``.
+
+    ``dtype``: float32 only (``None`` or ``torch.float32``).
+    ``epoch_chunk`` groups epochs in ``chunk_times`` and fixes where
+    ``checkpoint_every`` saves land, as in the JAX package.
+    """
+    if profile_dir is not None:
+        raise NotImplementedError(PROFILE_TODO)
+    if dtype not in (None, torch.float32):
+        raise NotImplementedError(BF16_TODO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.time()
+    idx_split_args = dict(idx_split_args or default_idx_split_args)
+    stop_args = dict(default_stopping_args)
+    stop_args.update(stopping_args or {})
+    max_epochs = int(stop_args.pop("max_epochs"))
+
+    labels_np = np.asarray(graph.labels)
+    idx_train_np, idx_stop_np, idx_valtest_np = preprocessing.gen_splits(
+        labels_np, idx_split_args, test=test)
+
+    if x_prepared is not None:
+        _check_prepared_input(x_prepared, graph, x_format=x_format,
+                              x_dtype=x_dtype)
+        x = x_prepared
+    else:
+        x = prepare_attr_input(graph, propagator, x_format=x_format,
+                               x_dtype=x_dtype)
+
+    dev = propagator.device
+
+    def on_dev(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+
+    idx_train, idx_stop = on_dev(idx_train_np), on_dev(idx_stop_np)
+    y_train = on_dev(labels_np[idx_train_np])
+    y_stop = on_dev(labels_np[idx_stop_np])
+
+    key_init, key_epochs = prng.split(prng.PRNGKey(seed))
+    n_classes = int(labels_np.max()) + 1
+    model = init_mlp_params(x.shape[1], list(hidden_units), n_classes,
+                            key=key_init, device=dev)
+    params = [lin.weight for lin in model.layers]
+    optimizer = Adam(params, lr=learning_rate)
+
+    early_stopping = EarlyStopping(
+        stop_varnames=stop_args["stop_varnames"],
+        patience=stop_args["patience"],
+        max_epochs=max_epochs)
+    # (weights, stopping acc, stopping loss, epoch) of the best epoch
+    best = (_snapshot(model), -np.inf, np.inf, -1)
+    start_epoch = 0
+    if resume and checkpoint_dir is not None:
+        from ppnp_tpu_torch import checkpoint as ckpt_mod
+        state = ckpt_mod.restore_checkpoint(checkpoint_dir)
+        if state is not None:
+            with torch.no_grad():
+                model.load_state_dict(state["params"])
+            optimizer.load_state_dict(state["opt_state"])
+            start_epoch = int(state["epoch"]) + 1
+            es = state["early_stopping"]
+            early_stopping.best_vals = [float(v) for v in es["best_vals"]]
+            early_stopping.patience = int(es["patience"])
+            early_stopping._best_acc = float(es["best_acc"])
+            early_stopping._best_loss = float(es["best_loss"])
+            early_stopping.best_epoch = (int(es["best_epoch"])
+                                         if es["best_epoch"] >= 0 else None)
+            best = ([state["best_state"][f"layers.{i}.weight"].to(dev)
+                     for i in range(len(params))],
+                    float(es["best_acc"]), float(es["best_loss"]),
+                    int(es["best_epoch"]))
+            logger.info("resumed from epoch %d", start_epoch)
+
+    def _save(epoch):
+        from ppnp_tpu_torch import checkpoint as ckpt_mod
+        ckpt_mod.save_checkpoint(checkpoint_dir, epoch, {
+            "params": _state_dict(params),
+            "opt_state": optimizer.state_dict(),
+            "epoch": epoch,
+            "early_stopping": {
+                "best_vals": [float(v) for v in early_stopping.best_vals],
+                "patience": early_stopping.patience,
+                "best_acc": float(best[1]),
+                "best_loss": float(best[2]),
+                "best_epoch": int(best[3]),
+            },
+            "best_state": _state_dict(best[0]),
+        })
+
+    def run_epoch(epoch: int):
+        key = prng.fold_in(key_epochs, epoch)
+        logp = ppnp_forward(model, x, propagator, idx_train, key=key,
+                            train=True, drop_prob=drop_prob)
+        loss = _nll(logp, y_train) + (reg_lambda / 2.0) * l2_reg(model)
+        grads = torch.autograd.grad(loss, params)
+        optimizer.step(grads)
+        with torch.no_grad():
+            logp = ppnp_forward(model, x, propagator, idx_stop, train=False)
+            stop_loss = _nll(logp, y_stop)
+            stop_acc = _mean((logp.argmax(dim=-1) == y_stop).float())
+            # one device-to-host copy for the epoch's three scalars
+            return torch.stack([loss.detach(), stop_acc,
+                                stop_loss]).tolist()
+
+    last_epoch = max(start_epoch - 1, 0)
+    stop = False
+    chunk_start = start_epoch
+    # Per-chunk (n_epochs, wall_s) pairs; the EMA over full chunks after
+    # the first feeds result["spmm_gbps"], as in the JAX package.
+    chunk_times: list = []
+    ema_chunk_s = None
+    t_full = None
+    while chunk_start < max_epochs and not stop:
+        t_chunk = time.perf_counter()
+        count = min(epoch_chunk, max_epochs - chunk_start)
+        for epoch in range(chunk_start, chunk_start + count):
+            loss, acc, stop_loss = run_epoch(epoch)
+            last_epoch = epoch
+            if not np.isfinite(loss):
+                raise FloatingPointError(
+                    f"non-finite training loss at epoch {epoch} "
+                    f"(loss={loss}); check learning rate / inputs")
+            if acc > best[1] or (acc == best[1] and stop_loss < best[2]):
+                best = (_snapshot(model), acc, stop_loss, epoch)
+            if metrics is not None:
+                metrics.write(event="epoch", epoch=epoch, train_loss=loss,
+                              stopping_accuracy=acc,
+                              stopping_loss=stop_loss)
+            if print_interval and epoch % print_interval == 0:
+                logger.info(
+                    "epoch %4d: train loss %.4f, stopping acc %.4f "
+                    "loss %.4f", epoch, loss, acc, stop_loss)
+            if early_stopping.check([acc, stop_loss], epoch):
+                stop = True
+                break
+        now = time.perf_counter()
+        chunk_times.append((last_epoch - chunk_start + 1, now - t_chunk))
+        if count == epoch_chunk and not stop:
+            if t_full is not None:
+                dt = now - t_full
+                ema_chunk_s = (dt if ema_chunk_s is None
+                               else 0.9 * ema_chunk_s + 0.1 * dt)
+            t_full = now
+        if checkpoint_dir is not None and (
+                stop or (chunk_start // checkpoint_every)
+                != ((last_epoch + 1) // checkpoint_every)):
+            _save(last_epoch)
+        chunk_start += count
+
+    if checkpoint_dir is not None and not stop:
+        # max_epochs ran out without an early stop: persist the final state
+        _save(last_epoch)
+
+    runtime = time.time() - t_start
+    best_weights, _, _, best_epoch = best
+    if best_epoch >= 0:
+        with torch.no_grad():  # restore the best snapshot
+            for w, b in zip(params, best_weights):
+                w.copy_(b)
+    else:
+        best_epoch = None
+
+    preds = get_predictions(model, x, propagator)
+    result: Dict[str, Any] = {}
+    for split_name, idx in (("train", idx_train_np),
+                            ("early_stopping", idx_stop_np),
+                            ("valtest", idx_valtest_np)):
+        result[split_name] = {
+            "accuracy": accuracy(labels_np[idx], preds[idx]),
+            "f1_score": macro_f1(labels_np[idx], preds[idx], n_classes),
+        }
+    nepochs = last_epoch + 1
+    result.update(
+        x_format="sparse" if isinstance(x, SparseInput) else "dense",
+        runtime=runtime,
+        runtime_perepoch=runtime / max(nepochs, 1),
+        chunk_times=chunk_times,
+        last_epoch=last_epoch,
+        best_epoch=best_epoch,
+        predictions=preds,
+    )
+    # Effective propagation bandwidth from the steady-state chunk EMA: an
+    # epoch moves ~3·K SpMMs (forward K, backward K, stopping eval K),
+    # each touching the edge stream (nnz·8 B) and H in and out (2·n·c·4 B).
+    niter = getattr(propagator, "niter", None)
+    op = propagator.edges if propagator.edges is not None \
+        else propagator.csr
+    if ema_chunk_s and niter:
+        bytes_per_step = op.nnz * 8 + 2 * x.shape[0] * n_classes * 4
+        result["spmm_gbps"] = (epoch_chunk * 3 * niter * bytes_per_step
+                               / ema_chunk_s / 1e9)
+    if metrics is not None:
+        metrics.write(event="final", **{
+            k: v for k, v in result.items() if k != "predictions"})
+    logger.info(
+        "done: %d epochs (best %s), valtest acc %.4f f1 %.4f, %.1fs",
+        nepochs, best_epoch,
+        result["valtest"]["accuracy"], result["valtest"]["f1_score"],
+        runtime)
+    return model, result

@@ -1,11 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``gpu``: every test skips without a CUDA card. On a machine with
-one, run ``python -m pytest tests/test_torch_cuda.py -q``. The kernels
-build from ``ppnp_tpu_torch/csrc`` at their first call.
+one, run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
+The kernels build from ``ppnp_tpu_torch/csrc`` at their first call.
 Tolerance rtol = atol = 1e-5: the kernels sum each row's edges in CSR
 order, the plain versions through ``index_add_``, so only the order of
-the f32 sums differs.
+the f32 sums differs. The mask kernels are held to their plain versions
+run on the CPU bit for bit.
 """
 
 import numpy as np
@@ -14,9 +15,14 @@ import scipy.sparse as sp
 import torch
 
 from ppnp_tpu_torch.kernels import build
-from ppnp_tpu_torch.kernels.fused import appnp_fused, appnp_fused_plain
-from ppnp_tpu_torch.kernels.spmm import spmm_csr, spmm_csr_plain
-from ppnp_tpu_torch.ops.sparse import csr_from_scipy
+from ppnp_tpu_torch.kernels.fused import (appnp_fused, appnp_fused_grad,
+                                          appnp_fused_plain)
+from ppnp_tpu_torch.kernels.masks import (dropout_mask, dropout_mask_plain,
+                                          edge_masks, edge_masks_plain)
+from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_bwd,
+                                         spmm_csr_plain, spmm_grad)
+from ppnp_tpu_torch.ops import prng
+from ppnp_tpu_torch.ops.sparse import csr_from_scipy, csr_transpose
 
 pytestmark = pytest.mark.gpu
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -96,3 +102,103 @@ def test_wrappers_refuse_mixed_devices(dev):
         spmm_csr(csr, h)
     with pytest.raises(ValueError, match="appnp_fused"):
         appnp_fused(csr, h, alpha=0.1, niter=2)
+
+
+@pytest.mark.parametrize("c", [1, 8, 15, 16, 33, 64])
+@pytest.mark.parametrize("shape", [(500, 500), (300, 900)])
+def test_spmm_backward_matches_plain(dev, c, shape):
+    """K1 backward: A_wᵀ·g on the CSR of the transpose (for (300, 900),
+    a rectangular Xᵀ of 900 rows), with hub and empty rows; through
+    ``spmm_grad`` the launches count as backward ones."""
+    a = _matrix(*shape, 0.02, seed=c, hubs=True)
+    csr = csr_from_scipy(a, device=dev)
+    csr_t = csr_transpose(csr)
+    gen = torch.Generator(device=dev).manual_seed(c)
+    g = torch.randn(shape[0], c, device=dev, generator=gen)
+    w_t = csr_t.val * torch.rand(csr_t.nnz, device=dev, generator=gen)
+    before = build.LAUNCHES["spmm_csr_bwd"]
+    out = spmm_csr_bwd(csr_t, g, w_t)
+    assert build.LAUNCHES["spmm_csr_bwd"] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, spmm_csr_plain(csr_t, g, w_t), **TOL)
+    h = torch.randn(shape[1], c, device=dev, generator=gen,
+                    requires_grad=True)
+    (spmm_grad(csr, csr_t, h) * g).sum().backward()
+    torch.testing.assert_close(h.grad, spmm_csr_plain(csr_t, g), **TOL)
+    assert build.LAUNCHES["spmm_csr_bwd"] == before + 2
+
+
+@pytest.mark.parametrize("niter", [1, 2, 3, 10])
+@pytest.mark.parametrize("per_iteration", [False, True])
+def test_fused_adjoint_matches_plain(dev, niter, per_iteration):
+    # 40,000 rows: the cooperative grid strides, as in the forward test
+    a = _matrix(40_000, 40_000, 2e-4, seed=niter, hubs=True)
+    csr_t = csr_transpose(csr_from_scipy(a, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(niter)
+    g = torch.randn(a.shape[0], 15, device=dev, generator=gen)
+    planes = None
+    if per_iteration:
+        planes = 0.8 * csr_t.val * torch.rand(niter, csr_t.nnz, device=dev,
+                                              generator=gen)
+    before = build.LAUNCHES["appnp_adjoint"]
+    out = appnp_fused(csr_t, g, alpha=0.2, niter=niter, e_w_all=planes,
+                      mode="adjoint")
+    assert build.LAUNCHES["appnp_adjoint"] == before + 1
+    torch.cuda.synchronize()
+    ref = appnp_fused_plain(csr_t, g, alpha=0.2, niter=niter,
+                            e_w_all=planes, mode="adjoint")
+    torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("niter", [1, 4])
+def test_fused_grad_on_the_card_matches_the_cpu(dev, niter):
+    a = _matrix(3000, 3000, 2e-3, seed=niter, hubs=True)
+    cpu = torch.device("cpu")
+    csr = csr_from_scipy(a, device=cpu)
+    csr_t = csr_transpose(csr)
+    keys = prng.split(prng.PRNGKey(niter), niter)
+    planes, planes_t = edge_masks(keys, csr, csr_t, keep=0.5, scale=0.8)
+    rng = np.random.RandomState(niter)
+    h0 = torch.from_numpy(rng.randn(3000, 15).astype(np.float32))
+    r = torch.from_numpy(rng.randn(3000, 15).astype(np.float32))
+    grads = []
+    for d in (cpu, dev):
+        h = h0.to(d, copy=True).requires_grad_()
+        out = appnp_fused_grad(csr.to(d), csr_t.to(d), h, alpha=0.2,
+                               niter=niter, e_w_all=planes.to(d),
+                               e_w_t_all=planes_t.to(d))
+        (out * r.to(d)).sum().backward()
+        grads.append((out.detach().cpu(), h.grad.cpu()))
+    for x, y in zip(*grads):
+        torch.testing.assert_close(y, x, **TOL)
+
+
+@pytest.mark.parametrize("n_keys", [1, 10, 70])
+def test_edge_masks_bit_equal_to_the_cpu(dev, n_keys):
+    """Both layouts of a rectangular X (span max(n, f)) in one launch per
+    64 planes, bit-equal to the int64 Threefry on the CPU."""
+    a = _matrix(700, 1900, 0.01, seed=n_keys, hubs=True)
+    cpu = torch.device("cpu")
+    x = csr_from_scipy(a, device=cpu)
+    x_t = csr_transpose(x)
+    keys = prng.split(prng.PRNGKey(n_keys), n_keys)
+    want = edge_masks_plain(keys, x, x_t, keep=0.7, scale=0.8)
+    before = build.LAUNCHES["edge_masks"]
+    got = edge_masks(keys, x.to(dev), x_t.to(dev), keep=0.7, scale=0.8)
+    assert build.LAUNCHES["edge_masks"] == before + -(-n_keys // 64)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+    kept = float((got[0] != 0).float().mean())
+    assert 0.6 < kept < 0.8
+
+
+@pytest.mark.parametrize("shape", [(18331, 64), (37, 13), (1001,),
+                                   (5, 7, 6)])
+def test_dropout_mask_bit_equal_to_the_cpu(dev, shape):
+    key = prng.fold_in(prng.PRNGKey(2), 9)
+    before = build.LAUNCHES["dropout_mask"]
+    got = dropout_mask(key, shape, 179, dev)
+    assert build.LAUNCHES["dropout_mask"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), dropout_mask_plain(key, shape, 179))

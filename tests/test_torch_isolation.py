@@ -89,6 +89,8 @@ def test_other_entry_points_default_to_cuda(no_cuda, tmp_path):
         init_mlp_params(8, [4], 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["predict", "--checkpoint-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["train", "--max-epochs", "1"])
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")

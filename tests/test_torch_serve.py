@@ -33,6 +33,7 @@ from ppnp_tpu_torch.checkpoint import (latest_step, restore_checkpoint,
 from ppnp_tpu_torch.config import RunConfig as TRunConfig
 from ppnp_tpu_torch.data.io import save_to_npz
 from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
+from ppnp_tpu_torch.metrics import TensorboardWriter
 from ppnp_tpu_torch.models.appnp import (MLP, init_mlp_params, l2_reg,
                                          params_from_jax, ppnp_forward)
 from ppnp_tpu_torch.ops.sparse_input import SparseInput
@@ -219,12 +220,9 @@ def test_not_ported_options_raise(port_graph):
             t_builders.build_propagator(cfg, port_graph, device="cpu")
     prop = t_builders.build_propagator(TRunConfig(backend="pallas"),
                                        port_graph, device="cpu")
-    model = init_mlp_params(128, HIDDEN, 4, device="cpu")
-    x = t_train.prepare_attr_input(port_graph, prop, x_format="sparse")
-    h0 = torch.zeros(port_graph.num_nodes(), 4)
-    for call in (lambda: prop(h0, train=True),
-                 lambda: model(x, train=True),
-                 lambda: x.matmul(model.layers[0].weight.t(), train=True)):
+    for call in (lambda: t_train.train_model(port_graph, prop,
+                                             profile_dir="trace"),
+                 lambda: TensorboardWriter("tb")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

@@ -6,24 +6,43 @@ on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``). Here the
 plain version meets ``spmm_pair_chunks`` run in Pallas interpret mode at
 a reduced packing geometry, rtol = atol = 1e-5: both accumulate in f32
 and differ only in the order of the sums.
+
+The backward (``spmm_grad``: K1 on the CSR of Aᵀ with the same masked
+weights) meets ``make_spmm_grad`` and ``SparseInput.matmul``'s gradient,
+with id-keyed dropout masks drawn from the same keys in both packages.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
 
-from ppnp_tpu.kernels.spmm import spmm_pair_chunks
-from ppnp_tpu.ops.pairchunks import pair_chunks_from_scipy
+from ppnp_tpu.kernels.spmm import make_spmm_grad, spmm_pair_chunks
+from ppnp_tpu.ops.dropout import edge_dropout_by_id as j_edge_dropout_by_id
+from ppnp_tpu.ops.normalize import calc_A_hat
+from ppnp_tpu.ops.pairchunks import (pair_chunks_banded,
+                                     pair_chunks_from_scipy,
+                                     slot_permutation, transpose_pair)
+from ppnp_tpu.ops.sparse_input import build_sparse_input
+from ppnp_tpu.preprocessing import normalize_attributes
 
 from ppnp_tpu_torch.kernels import build
-from ppnp_tpu_torch.kernels.spmm import spmm_csr, spmm_csr_plain
-from ppnp_tpu_torch.ops.sparse import csr_from_scipy
+from ppnp_tpu_torch.kernels.masks import edge_masks
+from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_plain,
+                                         spmm_grad)
+from ppnp_tpu_torch.ops import prng
+from ppnp_tpu_torch.ops.sparse import (csr_from_scipy, csr_transpose,
+                                       rcm_permutation)
+from ppnp_tpu_torch.ops.sparse_input import SparseInput
 
 # The reduced interpret-mode geometry of ppnp_tpu/ops/sparse_input.py.
 GEO = dict(window=128, window_src=128, chunk=8, seg_per_mid=8,
            mids_per_step=4, use_native="never")
+# A shorter unroll per grid step for the gradient tests: interpret mode
+# compiles the kernel body once per call shape, and its size sets that time.
+GEO_GRAD = dict(GEO, seg_per_mid=2, mids_per_step=1)
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = torch.device("cpu")
 
@@ -151,3 +170,88 @@ def test_build_is_lazy():
     for src in build.SOURCES.values():
         assert (build._CSRC / src).is_file()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_backward_matches_make_spmm_grad(small_graph, masked):
+    """Output, dH and d(init) of one propagation step (1-α)Â_drop·H + init
+    against ``make_spmm_grad`` (interpret) on the RCM packings, with
+    id-keyed masks of both layouts from the same key."""
+    a_hat = calc_A_hat(small_graph.adj_matrix)
+    pc = pair_chunks_banded(a_hat, reorder="rcm", device=False, **GEO_GRAD)
+    pc_t = transpose_pair(a_hat, perm=np.asarray(pc.perm), device=False,
+                          **GEO_GRAD)
+    w_perm = jnp.asarray(slot_permutation(pc, pc_t))
+    csr = csr_from_scipy(a_hat, perm=rcm_permutation(a_hat), device=CPU)
+    csr_t = csr_transpose(csr)
+    n, c, scale = a_hat.shape[0], 15, 0.8
+    rng = np.random.RandomState(1)
+    h = rng.randn(n, c).astype(np.float32)
+    init = rng.randn(n, c).astype(np.float32)
+    r = rng.randn(n, c).astype(np.float32)
+    key = prng.PRNGKey(13)
+    if masked:
+        w = scale * j_edge_dropout_by_id(jnp.asarray(key), pc, 0.5)
+        w_t = scale * j_edge_dropout_by_id(jnp.asarray(key), pc_t, 0.5)
+        tw, tw_t = (p[0] for p in edge_masks([key], csr, csr_t, keep=0.5,
+                                             scale=scale))
+    else:
+        w, w_t = scale * pc.e_w, scale * pc_t.e_w
+        tw, tw_t = scale * csr.val, scale * csr_t.val
+    f = make_spmm_grad(pc, pc_t, w_perm)
+
+    def loss(hh, ii):
+        out = f(hh, w, ii, w_t)
+        return jnp.sum(out * r), out
+
+    (_, out), (dh, dinit) = jax.value_and_grad(loss, argnums=(0, 1),
+                                               has_aux=True)(
+        jnp.asarray(h), jnp.asarray(init))
+    th = torch.from_numpy(h).requires_grad_()
+    ti = torch.from_numpy(init).requires_grad_()
+    tout = spmm_grad(csr, csr_t, th, tw, tw_t, ti)
+    (tout * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(out), **TOL)
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(dh), **TOL)
+    np.testing.assert_allclose(ti.grad.numpy(), np.asarray(dinit), **TOL)
+
+
+def test_sparse_fc1_dw_matches_sparse_input(small_graph):
+    """``dW = X_dropᵀ·dH`` of the sparse fc1 (K1 on the CSR of Xᵀ, id-keyed
+    input dropout) against ``SparseInput.matmul``'s gradient."""
+    attr = sp.csr_matrix(normalize_attributes(small_graph.attr_matrix))
+    n, f = attr.shape
+    geo = {k: v for k, v in GEO_GRAD.items() if k != "use_native"}
+    xin = build_sparse_input(attr, layout="banded", **geo)
+    csr = csr_from_scipy(attr, device=CPU)
+    tx = SparseInput(csr=csr, csr_t=csr_transpose(csr))
+    rng = np.random.RandomState(2)
+    w = (0.1 * rng.randn(f, 64)).astype(np.float32)
+    r = rng.randn(n, 64).astype(np.float32)
+    key = prng.fold_in(prng.PRNGKey(3), 5)
+
+    def loss(ww):
+        out = xin.matmul(ww, key=jnp.asarray(key), train=True)
+        return jnp.sum(out * r), out
+
+    (_, out), dw = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(w))
+    tw = torch.from_numpy(w).requires_grad_()
+    tout = tx.matmul(tw, key=key, train=True)
+    (tout * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(out), **TOL)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(dw), **TOL)
+    # eval mode: the stored values, no mask
+    np.testing.assert_allclose(
+        tx.matmul(torch.from_numpy(w)).numpy(),
+        np.asarray(xin.matmul(jnp.asarray(w))), **TOL)
+
+
+def test_backward_counts_no_launch_on_the_cpu():
+    a, h, init = _case("square_init")
+    csr = csr_from_scipy(a, device=CPU)
+    before = dict(build.LAUNCHES)
+    th = torch.from_numpy(h).requires_grad_()
+    spmm_grad(csr, csr_transpose(csr), th).sum().backward()
+    assert th.grad is not None and build.LAUNCHES == before
+    with pytest.raises(ValueError, match="spmm_grad"):
+        spmm_grad(csr_from_scipy(a[:200], device=CPU), csr, th)
