@@ -15,7 +15,11 @@ order; any failure exits non-zero and nothing is caught:
    c = 64), K3 forward and adjoint (K reversed masked planes); the mask
    kernels bit-equal to their plain int64 Threefry run on the CPU. Time
    kernel, plain version and the nearest single PyTorch call (CUDA
-   events);
+   events).
+   K2 (grouped, G = 10 seeds) is held the same way at the propagation
+   step (150 lanes, with init) and its backward on Âᵀ, and at the sparse
+   fc1 (640 lanes) and its backward on Xᵀ, and bit for bit against G K1
+   launches on the per-group slices;
 4. serving: write a checkpoint of random weights from a seeded
    generator, then run ``python -m ppnp_tpu_torch predict`` in process
    through the xla, pallas and fused backends, several requests each;
@@ -26,7 +30,16 @@ order; any failure exits non-zero and nothing is caught:
    and falling loss, one epoch on the card against the same epoch on the
    CPU, and that ``predict`` serves each trained checkpoint on every arm
    with the same argmax; print ms per epoch per arm;
-6. print one ``{"kernels": [...]}`` line, then the card line, then
+6. seed sweep: run ``python -m ppnp_tpu_torch reproduce`` in process on
+   ms_academic, sparse X, the 10 default seeds in one batch (~20 epochs
+   pallas, a few xla), and 2 seeds serially; assert launch counts per
+   batched epoch, finite and falling per-seed losses, and batched losses
+   equal to the serial ones within 1e-5; print ms per batched epoch
+   beside G × the serial epoch, and profile batched epochs;
+7. exact PPNP: ``reproduce --propagation exact`` on Citeseer (2 seeds),
+   then ``calc_ppr_exact`` at the PubMed surrogate's n, timed, with its
+   residual checked;
+8. print one ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -47,6 +60,11 @@ import torch
 DATASET = "ms_academic"
 REQUESTS = 3           # forward passes per backend in the serving phase
 EPOCHS = {"pallas": 20, "fused": 20, "xla": 4}   # training phase
+SWEEP_EPOCHS = {"pallas": 20, "xla": 4}   # batched seed sweep, G = 10
+SERIAL_SEEDS, SERIAL_EPOCHS = 2, 4        # serial sweep beside it
+SWEEP_TOL = 1e-5       # batched vs serial per-seed losses: f32 sum order
+EXACT_EPOCHS = 10      # exact Citeseer sweep
+EXACT_RESID = 1e-4     # max |M Π - α I| of the f32 solve at n = 19,717
 RTOL = ATOL = 1e-5     # kernel vs plain version: f32 summation order only
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5   # one epoch, card vs CPU: weight grads
 AGREE = 0.999          # pallas / fused argmax equal to xla on ≥ this share
@@ -131,6 +149,34 @@ def csr_tensor(a, values):
                                    size=(a.n_rows, a.n_cols))
 
 
+def record(name, kernel, plain, library, bytes_moved, flops,
+           exact_ref=None, **extra_ms):
+    """Compare (bit-equal to ``exact_ref`` where one is given, else within
+    the tolerance of the plain version) and time kernel, plain version,
+    library call and each of ``extra_ms`` (name: function)."""
+    out = kernel()
+    if exact_ref is not None:
+        torch.cuda.synchronize()
+        for o, r in zip(out, exact_ref):
+            if not torch.equal(o.cpu(), r):
+                raise SystemExit(f"{name}: not bit-equal to the plain "
+                                 "version run on the CPU")
+        err = 0.0
+    else:
+        err = compare(name, out, plain())
+    b_ms, b_by = bound(bytes_moved, flops)
+    rec = dict(max_abs_err=err, ms=time_ms(kernel),
+               plain_ms=time_ms(plain),
+               library_ms=None if library is None else time_ms(library),
+               bound_ms=b_ms, bound_by=b_by, call_ms=call_ms(kernel),
+               **{k: time_ms(fn) for k, fn in extra_ms.items()})
+    print(f"{name}: max_abs_err={err:.3g} "
+          f"({'bit-equal' if exact_ref is not None else f'tol rtol=atol={RTOL}'}) "
+          + " ".join(f"{k}={v}" for k, v in rec.items()
+                     if k != "max_abs_err"))
+    return rec
+
+
 def kernel_phases(dev):
     """Phase 3: each kernel and mode against its plain version at
     main-path shapes. Returns the per-kernel records (without launches)."""
@@ -165,31 +211,6 @@ def kernel_phases(dev):
     ws, ws_t = prop.w_scaled, prop.w_t_scaled
     print(f"shapes: n={n} nnz(A)={a.nnz} c={c} | X {n}x{f} "
           f"nnz(X)={x.nnz} hidden={hidden} | alpha={alpha} K={niter}")
-
-    def record(name, kernel, plain, library, bytes_moved, flops,
-               exact_ref=None):
-        """Compare (bit-equal to ``exact_ref`` where one is given, else
-        within the tolerance of the plain version) and time."""
-        out = kernel()
-        if exact_ref is not None:
-            torch.cuda.synchronize()
-            for o, r in zip(out, exact_ref):
-                if not torch.equal(o.cpu(), r):
-                    raise SystemExit(f"{name}: not bit-equal to the plain "
-                                     "version run on the CPU")
-            err = 0.0
-        else:
-            err = compare(name, out, plain())
-        b_ms, b_by = bound(bytes_moved, flops)
-        rec = dict(max_abs_err=err, ms=time_ms(kernel),
-                   plain_ms=time_ms(plain),
-                   library_ms=None if library is None else time_ms(library),
-                   bound_ms=b_ms, bound_by=b_by, call_ms=call_ms(kernel))
-        print(f"{name}: max_abs_err={err:.3g} "
-              f"({'bit-equal' if exact_ref is not None else f'tol rtol=atol={RTOL}'}) "
-              + " ".join(f"{k}={v}" for k, v in rec.items()
-                         if k != "max_abs_err"))
-        return rec
 
     recs = {}
     # K1 at the propagation step: (1-α)Â @ H + α·H⁰
@@ -275,6 +296,129 @@ def kernel_phases(dev):
         exact_ref=(dropout_mask_plain(key, shape, thresh),))
     del planes
     return recs
+
+
+def grouped_kernel_phase(dev):
+    """K2 at MS Academic with the G = 10 seeds of the sweep: the
+    propagation step (cg = 15, 150 lanes, with init) and its backward on
+    Âᵀ, the sparse fc1 (X with G planes, cg = 64, 640 lanes) and its
+    backward on Xᵀ; each within the tolerance of the plain version and
+    bit-equal to G K1 launches on the per-group slices. Returns the
+    records of ``spmm_grouped`` and ``spmm_grouped_bwd``."""
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.kernels.masks import edge_masks
+    from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_grouped,
+                                             spmm_csr_grouped_bwd,
+                                             spmm_csr_grouped_plain)
+    from ppnp_tpu_torch.ops import prng
+    from ppnp_tpu_torch.reproduce import DEFAULT_SEEDS
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    cfg = RunConfig(dataset=DATASET, backend="pallas")
+    graph = load_graph(cfg)
+    prop = build_propagator(cfg, graph, device=dev)
+    a, a_t, alpha = prop.csr, prop.csr_t, prop.alpha
+    xin = prepare_attr_input(graph, prop, x_format="sparse")
+    x, x_t = xin.csr, xin.csr_t
+    n, f = x.n_rows, x.n_cols
+    groups = len(DEFAULT_SEEDS)
+    c, hidden = int(graph.labels.max()) + 1, 64
+    keys = np.stack([prng.fold_in(prng.PRNGKey(s), 0) for s in DEFAULT_SEEDS])
+    keep = 1.0 - prop.drop_prob
+    planes, planes_t = edge_masks(keys, a, a_t, keep=keep, scale=1.0 - alpha)
+    planes_x, planes_xt = edge_masks(keys, x, x_t, keep=keep)
+    rng = np.random.RandomState(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.randn(*shape)).astype(np.float32)).to(dev)
+
+    h, g = randn(n, groups * c), randn(n, groups * c)
+    init = alpha * h
+    w1s = randn(f, groups * hidden, scale=0.03)
+    dh = randn(n, groups * hidden)
+    print(f"K2 shapes: G={groups} | step n={n} nnz={a.nnz} lanes="
+          f"{groups * c} | fc1 X {n}x{f} nnz={x.nnz} lanes={groups * hidden}")
+
+    def per_group(op, h_, planes_, init_, cg):
+        """G K1 launches on contiguous per-group slices (sliced here,
+        outside the timed calls)."""
+        sl = [slice(k * cg, (k + 1) * cg) for k in range(groups)]
+        hs = [h_[:, s_].contiguous() for s_ in sl]
+        inits = [None if init_ is None else init_[:, s_].contiguous()
+                 for s_ in sl]
+
+        def run():
+            return [op(hs[k], planes_[k], inits[k]) for k in range(groups)]
+        return run
+
+    def coo_batch(m, planes_):
+        """(G, rows, cols) sparse COO of the G masked weight sets."""
+        rows = m.row_ids()
+        idx = torch.stack([
+            torch.arange(groups, device=dev).repeat_interleave(m.nnz),
+            rows.repeat(groups), m.col.long().repeat(groups)])
+        return torch.sparse_coo_tensor(
+            idx, planes_.reshape(-1), (groups, m.n_rows, m.n_cols)).coalesce()
+
+    def batched(h_, cg):
+        return h_.view(h_.shape[0], groups, cg).permute(1, 0, 2).contiguous()
+
+    def held(name, kernel, plain, library, bytes_moved, flops, k1_run):
+        rec = record(name, kernel, plain, library, bytes_moved, flops,
+                     k1_x_G_ms=k1_run)
+        out, ref = kernel(), torch.cat(k1_run(), dim=1)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise SystemExit(f"{name}: not bit-equal to {groups} K1 "
+                             "launches on the per-group slices")
+        print(f"{name}: bit-equal to {groups} K1 launches")
+        return rec
+
+    def k1(m):
+        return lambda h_, w, i: spmm_csr(m, h_, w, i)
+
+    lanes = groups * c
+    a_lib, hb = coo_batch(a, planes), batched(h, c)
+    step = held("K2 step", lambda: spmm_csr_grouped(a, h, planes, init),
+                lambda: spmm_csr_grouped_plain(a, h, planes, init),
+                lambda: torch.bmm(a_lib, hb),
+                (n + 1) * 4 + a.nnz * 4 + groups * a.nnz * 4
+                + 3 * n * lanes * 4, 2 * a.nnz * lanes + n * lanes,
+                per_group(k1(a), h, planes, init, c))
+    x_lib, wb = coo_batch(x, planes_x), batched(w1s, hidden)
+    lanes_x = groups * hidden
+    fc1 = held("K2 fc1", lambda: spmm_csr_grouped(x, w1s, planes_x),
+               lambda: spmm_csr_grouped_plain(x, w1s, planes_x),
+               lambda: torch.bmm(x_lib, wb),
+               (n + 1) * 4 + x.nnz * 4 + groups * x.nnz * 4
+               + (f + n) * lanes_x * 4, 2 * x.nnz * lanes_x,
+               per_group(k1(x), w1s, planes_x, None, hidden))
+    at_lib, gb = coo_batch(a_t, planes_t), batched(g, c)
+    bwd = held("K2 bwd step",
+               lambda: spmm_csr_grouped_bwd(a_t, g, planes_t),
+               lambda: spmm_csr_grouped_plain(a_t, g, planes_t),
+               lambda: torch.bmm(at_lib, gb),
+               (n + 1) * 4 + a_t.nnz * 4 + groups * a_t.nnz * 4
+               + 2 * n * lanes * 4, 2 * a_t.nnz * lanes,
+               per_group(k1(a_t), g, planes_t, None, c))
+    xt_lib, dhb = coo_batch(x_t, planes_xt), batched(dh, hidden)
+    bwd_x = held("K2 bwd fc1 (dW)",
+                 lambda: spmm_csr_grouped_bwd(x_t, dh, planes_xt),
+                 lambda: spmm_csr_grouped_plain(x_t, dh, planes_xt),
+                 lambda: torch.bmm(xt_lib, dhb),
+                 (f + 1) * 4 + x_t.nnz * 4 + groups * x_t.nnz * 4
+                 + (n + f) * lanes_x * 4, 2 * x_t.nnz * lanes_x,
+                 per_group(k1(x_t), dh, planes_xt, None, hidden))
+    return {
+        "spmm_grouped": dict(step, max_abs_err=max(step["max_abs_err"],
+                                                   fc1["max_abs_err"]),
+                             fc1=fc1),
+        "spmm_grouped_bwd": dict(bwd, max_abs_err=max(bwd["max_abs_err"],
+                                                      bwd_x["max_abs_err"]),
+                                 fc1=bwd_x),
+    }
 
 
 def serving_path(dev):
@@ -639,6 +783,215 @@ def reference_logp(graph, state, alpha: float, niter: int) -> torch.Tensor:
                                                      keepdims=True)))
 
 
+def sweep_launches_per_epoch(backend: str, niter: int, groups: int) -> dict:
+    """Kernel launches of one batched epoch (G seeds, sparse X): the train
+    forward and backward, then the stopping-set eval forward.
+
+    pallas: K2 for the masked fc1 and each of the K steps, forward and
+    backward; the eval is K1 on the lane-stacked W₁ and K steps of K1 at
+    G·c lanes; one mask launch draws X's G planes, and the G·K planes of
+    Â and Âᵀ take one launch per 64; G dense dropout masks on the hidden
+    layer. xla: the same fc1, the propagation in plain torch ops with G
+    slot-keyed masks per step."""
+    if backend == "pallas":
+        return {"spmm_grouped": niter + 1, "spmm_grouped_bwd": niter + 1,
+                "spmm_csr": niter + 1,
+                "edge_masks": 1 + -(-groups * niter // 64),
+                "dropout_mask": groups}
+    return {"spmm_grouped": 1, "spmm_grouped_bwd": 1, "spmm_csr": 1,
+            "edge_masks": 1, "dropout_mask": groups + groups * niter}
+
+
+def run_reproduce(dev, args, name: str):
+    """``reproduce`` in process with the launch counts set to 0 just
+    before and read just after; returns (launches, metrics rows, wall s,
+    stdout)."""
+    from ppnp_tpu_torch.__main__ import main as cli_main
+    from ppnp_tpu_torch.kernels import build
+
+    metrics = ROOT / "build" / "chip_smoke" / f"{name}.jsonl"
+    metrics.parent.mkdir(parents=True, exist_ok=True)
+    if metrics.exists():
+        metrics.unlink()
+    buf = io.StringIO()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["reproduce", *args, "--device", str(dev),
+                       "--print-interval", "0",
+                       "--metrics-out", str(metrics)])
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if rc != 0:
+        raise SystemExit(f"reproduce {name} exited {rc}")
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    return launches, [r for r in rows if r["event"] == "epoch"], wall, \
+        buf.getvalue()
+
+
+def seed_sweep_path(dev):
+    """The seed sweep: ``reproduce`` on MS Academic, sparse X, the 10
+    default seeds in ONE batch on the pallas and xla arms, then a few
+    serial epochs of 2 seeds; asserts launch counts per batched epoch,
+    finite and falling per-seed losses, and the batched losses of those 2
+    seeds against the serial runs. Returns launch counts per run."""
+    from ppnp_tpu_torch.reproduce import DEFAULT_SEEDS
+
+    groups, niter = len(DEFAULT_SEEDS), 10
+    common = ["--datasets", DATASET, "--x-format", "sparse", "--patience",
+              "100"]
+    launches, losses, epoch_ms = {}, {}, {}
+    for b, epochs in SWEEP_EPOCHS.items():
+        args = [*common, "--backend", b, "--nseeds", str(groups),
+                "--max-epochs", str(epochs)]
+        got, rows, wall, out = run_reproduce(dev, args, f"sweep_{b}")
+        launches[f"reproduce {b}"] = got
+        per = sweep_launches_per_epoch(b, niter, groups)
+        final = {"spmm_csr": niter + 1 if b == "pallas" else 1}
+        want = {k: per.get(k, 0) * epochs + final.get(k, 0)
+                for k in got}
+        if got != want or len(rows) != epochs:
+            raise SystemExit(f"reproduce {b}: {len(rows)} epochs, launches "
+                             f"{got}, expected {want}")
+        loss = np.array([r["train_loss"] for r in rows])   # (E, G)
+        if not np.isfinite(loss).all() or not (loss[-1] < loss[0]).all():
+            raise SystemExit(f"reproduce {b}: per-seed losses not finite "
+                             f"and falling: {loss[0]} -> {loss[-1]}")
+        ts = np.array([r["ts"] for r in rows])
+        epoch_ms[b] = float(np.median(np.diff(ts[1:]))) * 1e3
+        losses[b] = loss
+        print(f"reproduce {b}: G={groups} in one batch, {epochs} epochs, "
+              f"{wall:.2f} s; {out.splitlines()[0]}; loss per seed "
+              f"{np.round(loss[0], 4).tolist()} -> "
+              f"{np.round(loss[-1], 4).tolist()}; ms per batched epoch "
+              f"(median of epochs 2..{epochs - 1}, host clock) "
+              f"{epoch_ms[b]:.3f}; launches per epoch {per}")
+
+    args = [*common, "--backend", "pallas", "--nseeds", str(SERIAL_SEEDS),
+            "--serial-seeds", "--max-epochs", str(SERIAL_EPOCHS)]
+    got, rows, wall, _ = run_reproduce(dev, args, "sweep_serial")
+    launches["reproduce serial"] = got
+    per = launches_per_epoch("pallas", niter)
+    want = {k: (per.get(k, 0) * SERIAL_EPOCHS
+                + FINAL_EVAL["pallas"].get(k, 0)) * SERIAL_SEEDS
+            for k in got}
+    if got != want:
+        raise SystemExit(f"reproduce serial: launches {got}, expected "
+                         f"{want}")
+    serial_ms = []
+    for g, seed in enumerate(DEFAULT_SEEDS[:SERIAL_SEEDS]):
+        mine = [r for r in rows if r["seed"] == seed]
+        serial = [r["train_loss"] for r in mine]
+        batched = losses["pallas"][:SERIAL_EPOCHS, g]
+        err = float(np.abs(np.array(serial) - batched).max())
+        print(f"seed {seed}: serial losses {np.round(serial, 7).tolist()}, "
+              f"batched max_abs_err {err:.3g} (tol {SWEEP_TOL})")
+        np.testing.assert_allclose(batched, serial, rtol=SWEEP_TOL,
+                                   atol=SWEEP_TOL)
+        serial_ms += np.diff([r["ts"] for r in mine])[1:].tolist()
+    one = float(np.median(serial_ms)) * 1e3
+    print(f"batched epoch {epoch_ms['pallas']:.3f} ms for {groups} seeds vs "
+          f"serial {one:.3f} ms per seed-epoch x {groups} = "
+          f"{groups * one:.3f} ms (host clock, NVIDIA card above)")
+    for b in SWEEP_EPOCHS:
+        profile_batched_epochs(dev, b)
+    return launches
+
+
+def profile_batched_epochs(dev, backend: str, epochs=(2, 7)) -> None:
+    """Where a batched epoch's time goes: ``train_models`` (the 10 seeds,
+    sparse X) for ``epochs[0]`` and for ``epochs[1]`` epochs, each under
+    ``torch.profiler``; the differences per extra epoch cancel the set-up
+    and the final eval: host ms per epoch under the profiler, device busy
+    ms per epoch and its share, the largest device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.multiseed import train_models
+    from ppnp_tpu_torch.reproduce import DEFAULT_SEEDS
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    cfg = RunConfig(dataset=DATASET, backend=backend)
+    graph = load_graph(cfg)
+    prop = build_propagator(cfg, graph, device=dev)
+    x = prepare_attr_input(graph, prop, x_format="sparse")
+    runs = []
+    for e in epochs:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_models(graph, prop, DEFAULT_SEEDS, x_prepared=x,
+                         x_format="sparse", test=True,
+                         stopping_args={"max_epochs": e, "patience": 100})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        runs.append((wall, {ev.key: (ev.count, ev.device_time_total / 1e3)
+                            for ev in prof.key_averages()
+                            if ev.device_type == DeviceType.CUDA}))
+    d = epochs[1] - epochs[0]
+    (w0, k0), (w1, k1) = runs
+    per = {k: ((k1.get(k, (0, 0))[0] - k0.get(k, (0, 0))[0]) / d,
+               (k1.get(k, (0, 0))[1] - k0.get(k, (0, 0))[1]) / d)
+           for k in set(k0) | set(k1)}
+    wall = (w1 - w0) / d
+    busy = sum(ms for _, ms in per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:5]
+    print(f"profile batched epoch --backend {backend} (G={len(DEFAULT_SEEDS)}, "
+          f"{epochs[1]} minus {epochs[0]} epochs): {wall:.3f} ms/epoch under "
+          f"the profiler, device busy {busy:.4f} ms/epoch "
+          f"({busy / wall:.3f}); by device time: "
+          + "; ".join(f"{k[:40]} x{cnt:g} {ms:.4f} ms"
+                      for k, (cnt, ms) in top))
+
+
+def exact_path(dev):
+    """Exact PPNP: BASELINE's exact Citeseer config as a 2-seed
+    ``reproduce`` sweep (dense Π, dropout on the selected rows through the
+    dense mask kernel), then ``calc_ppr_exact`` once at the PubMed
+    surrogate's n, timed and checked by its residual."""
+    from ppnp_tpu_torch.builders import load_graph, resolve_alpha
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.ops.exact import _dense_m, calc_ppr_exact
+    from ppnp_tpu_torch.ops.normalize import calc_A_hat
+
+    args = ["--propagation", "exact", "--datasets", "citeseer", "--nseeds",
+            "2", "--max-epochs", str(EXACT_EPOCHS), "--patience", "100"]
+    got, rows, wall, out = run_reproduce(dev, args, "exact_citeseer")
+    # per seed and epoch: dropout on X, on the hidden layer, on Π[idx]
+    want = {k: 0 for k in got}
+    want["dropout_mask"] = 3 * EXACT_EPOCHS * 2
+    if got != want or len(rows) != 2 * EXACT_EPOCHS:
+        raise SystemExit(f"reproduce exact: {len(rows)} epoch rows, "
+                         f"launches {got}, expected {want}")
+    loss = [r["train_loss"] for r in rows]
+    if not np.isfinite(loss).all():
+        raise SystemExit(f"reproduce exact: non-finite loss {loss}")
+    print(f"reproduce exact citeseer: 2 seeds x {EXACT_EPOCHS} epochs, "
+          f"{wall:.2f} s; {out.splitlines()[0]}")
+
+    cfg = RunConfig(dataset="pubmed")
+    a_hat = calc_A_hat(load_graph(cfg).adj_matrix)
+    alpha = resolve_alpha(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ppr = calc_ppr_exact(a_hat, alpha, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = ppr.shape[0]
+    resid = _dense_m(a_hat, alpha, dev) @ ppr
+    resid.diagonal().sub_(alpha)
+    err = float(resid.abs().max())
+    print(f"calc_ppr_exact pubmed: n={n}, Pi {n * n * 4 / 1e9:.2f} GB, "
+          f"{secs:.3f} s (host clock, incl. densifying M); residual "
+          f"max|M Pi - alpha I| = {err:.3g} (tol {EXACT_RESID})")
+    if not torch.isfinite(ppr).all() or err > EXACT_RESID:
+        raise SystemExit("calc_ppr_exact: non-finite or residual too large")
+    return {"reproduce exact": got}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -667,17 +1020,24 @@ def main() -> int:
                 print(f"  nvcc {name}: {line.strip()}")
 
     recs = kernel_phases(dev)
+    recs.update(grouped_kernel_phase(dev))
     launches = {f"predict {b}": v for b, v in serving_path(dev).items()}
     trained, epoch_ms = training_path(dev)
     launches.update({f"train {b}": v for b, v in trained.items()})
     print("ms per training epoch (host clock, NVIDIA card above): "
           + json.dumps(epoch_ms))
+    launches.update(seed_sweep_path(dev))
+    launches.update(exact_path(dev))
 
     meta = {
         "spmm_csr": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",
                      "ppnp_tpu/kernels/spmm.py:71"),
         "spmm_csr_bwd": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",
                          "ppnp_tpu/kernels/spmm.py:71"),
+        "spmm_grouped": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",
+                         "ppnp_tpu/kernels/spmm.py:113"),
+        "spmm_grouped_bwd": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",
+                             "ppnp_tpu/kernels/spmm.py:113"),
         "appnp_fused": ("cuda", "ppnp_tpu_torch/csrc/fused.cu",
                         "ppnp_tpu/kernels/fused.py:84"),
         "appnp_adjoint": ("cuda", "ppnp_tpu_torch/csrc/fused.cu",

@@ -1,16 +1,17 @@
-"""CLI: ``python -m ppnp_tpu_torch {train,predict,info} ...``
+"""CLI: ``python -m ppnp_tpu_torch {train,predict,reproduce,info} ...``
 
-The training and serving commands of ``python -m ppnp_tpu``, with the
-same flags plus ``--device`` (default ``cuda``; ``--device cpu`` runs the
-plain PyTorch versions of the kernels). ``train`` prints the JSON keys of
-the JAX package's ``train`` (``ppnp_tpu/__main__.py:97-126``) plus
+The training, serving and seed-sweep commands of ``python -m ppnp_tpu``,
+with the same flags plus ``--device`` (default ``cuda``; ``--device cpu``
+runs the plain PyTorch versions of the kernels). ``train`` prints the JSON
+keys of the JAX package's ``train`` (``ppnp_tpu/__main__.py:97-126``) plus
 ``device``, and writes the checkpoint ``predict`` serves; ``predict``
 prints the JSON keys of the JAX package's ``predict``, plus ``device``
-and ``request_ms``.
+and ``request_ms``; ``reproduce`` prints the JAX package's lines and JSON
+(``ppnp_tpu/__main__.py:129-168``) and also takes ``--metrics-out``.
 
 Flags of the JAX CLI that select what the port does not have yet are
 accepted so the same command lines parse, and raise where they matter
-(``--propagation exact|sharded``, ``--backend blocked``,
+(``--propagation sharded``, ``--backend blocked``,
 ``--x-dtype bfloat16``, ``train --tensorboard`` and ``--profile``);
 ``--layout`` and the sharding flags do not change a CSR operator on one
 card.
@@ -186,6 +187,58 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def cmd_reproduce(args) -> int:
+    """Seed sweeps: per-dataset mean ± CI, or the full table (``--all``)."""
+    from ppnp_tpu_torch.metrics import JsonlWriter
+    from ppnp_tpu_torch.reproduce import (DEFAULT_SEEDS, run_full_table,
+                                          run_seed_sweep)
+
+    cfg = _cfg_from_args(args)
+    cfg.test = True
+    batched = False if args.serial_seeds else None
+    metrics = JsonlWriter(args.metrics_out) if args.metrics_out else None
+    try:
+        if args.all:
+            rows = run_full_table(base_cfg=cfg, datasets=args.datasets,
+                                  nseeds=args.nseeds, out_prefix=args.out,
+                                  batched=batched,
+                                  batch_size=args.batch_size,
+                                  device=args.device, metrics=metrics)
+            for r in rows:
+                line = (f"{r['dataset']:12s} {r['propagation']:5s} "
+                        f"{r['mean_accuracy_pct']:.2f} ± "
+                        f"{r['ci95_pct']:.2f} %")
+                if "paper_pct" in r:
+                    line += f"  (paper {r['paper_pct']:.2f})"
+                if "delta_pct" in r:
+                    line += (f"  Δ={r['delta_pct']:+.2f} "
+                             f"{'OK' if r['within_seed_variance'] else 'DIVERGED'}")
+                if not r["real_data"]:
+                    line += "  [surrogate — no parity diff]"
+                print(line)
+            print(json.dumps(rows, indent=2, default=float))
+            return 0
+        seeds = DEFAULT_SEEDS[:args.nseeds]
+        rows = []
+        for dataset in args.datasets or ["cora_ml", "citeseer", "pubmed"]:
+            cfg.dataset = dataset
+            res = run_seed_sweep(cfg, batched=batched,
+                                 batch_size=args.batch_size, seeds=seeds,
+                                 out_path=args.out and
+                                 f"{args.out}_{dataset}.json",
+                                 device=args.device, metrics=metrics)
+            rows.append((dataset, res["mean_accuracy"],
+                         res["ci95_accuracy"]))
+            print(f"{dataset}: {100*res['mean_accuracy']:.2f} "
+                  f"± {100*res['ci95_accuracy']:.2f} %")
+        print(json.dumps({d: {"mean": m, "ci95": c} for d, m, c in rows},
+                         indent=2))
+        return 0
+    finally:
+        if metrics is not None:
+            metrics.close()
+
+
 def cmd_info(args) -> int:
     import torch
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -233,6 +286,30 @@ def main(argv=None) -> int:
     p.add_argument("--requests", type=int, default=1,
                    help="forward passes to serve over the loaded graph")
     p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("reproduce",
+                       help="seed-sweep accuracy table (paper protocol)")
+    _add_common(p)
+    p.add_argument("--datasets", nargs="+", default=None,
+                   help="default: cora_ml citeseer pubmed; with --all: "
+                        "all four reference datasets")
+    p.add_argument("--nseeds", type=int, default=5)
+    p.add_argument("--serial-seeds", action="store_true",
+                   help="train seeds one at a time (default: batch all "
+                        "seeds into one lane-stacked run where the "
+                        "backend supports it — ppnp_tpu_torch.multiseed)")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="sub-batch batched sweeps to at most this many "
+                        "seeds per train_models call (default: one call)")
+    p.add_argument("--out", default=None, help="result JSON path prefix")
+    p.add_argument("--all", action="store_true",
+                   help="full paper-style table (exact+power × datasets) "
+                        "with paper-target diffs when real npz data is "
+                        "present")
+    p.add_argument("--metrics-out", default=None,
+                   help="append per-epoch metrics of every run to this "
+                        "JSONL file")
+    p.set_defaults(fn=cmd_reproduce)
 
     p = sub.add_parser("info", help="device/platform info")
     p.set_defaults(fn=cmd_info)

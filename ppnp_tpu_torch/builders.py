@@ -1,20 +1,22 @@
 """Builders: RunConfig + graph → propagation operator / training kwargs.
 
 Counterpart of ``ppnp_tpu/builders.py`` for ``propagation="power"`` with
-the ``xla``, ``pallas`` and ``fused`` backends. The ``pallas``/``fused``
-operator is Â in CSR under the reverse Cuthill-McKee permutation the JAX
-builders pack with (for every ``--layout``), so packed coordinates and
-edge ids agree, plus the CSR of Âᵀ for the backward.
+the ``xla``, ``pallas`` and ``fused`` backends, and ``propagation="exact"``
+(dense Π, ``ops/exact.py``; the backend does not apply). The
+``pallas``/``fused`` operator is Â in CSR under the reverse Cuthill-McKee
+permutation the JAX builders pack with (for every ``--layout``), so packed
+coordinates and edge ids agree, plus the CSR of Âᵀ for the backward.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 from ppnp_tpu_torch.config import RunConfig
 from ppnp_tpu_torch.data.datasets import DATASETS, load_dataset
 from ppnp_tpu_torch.data.sparsegraph import SparseGraph
 from ppnp_tpu_torch.device import resolve_device
+from ppnp_tpu_torch.ops.exact import PPRExact, calc_ppr_exact
 from ppnp_tpu_torch.ops.normalize import calc_A_hat
 from ppnp_tpu_torch.ops.propagation import BACKENDS, PPRPowerIteration
 from ppnp_tpu_torch.ops.sparse import (csr_from_scipy, csr_transpose,
@@ -26,7 +28,6 @@ __all__ = ["load_graph", "resolve_alpha", "build_propagator",
 
 # What the port does not have yet, and the ROADMAP.md item that brings it.
 _NOT_PORTED = {
-    "exact": "ROADMAP.md, \"Still to port\", item 3: Exact PPNP",
     "sharded": "ROADMAP.md, \"Still to port\", item 6: Sharded / "
                "hierarchical",
     "blocked": "ROADMAP.md, \"Still to port\", item 5: Blocked backend",
@@ -45,10 +46,15 @@ def resolve_alpha(cfg: RunConfig) -> float:
 
 
 def build_propagator(cfg: RunConfig, graph: SparseGraph,
-                     device=None) -> PPRPowerIteration:
+                     device=None) -> Union[PPRPowerIteration, PPRExact]:
     """The propagation operator named by the config, on ``device``
     (default cuda; raises when CUDA is absent)."""
     dev = resolve_device(device)
+    if cfg.propagation == "exact":
+        a_hat = calc_A_hat(graph.adj_matrix)
+        return PPRExact(calc_ppr_exact(a_hat, resolve_alpha(cfg),
+                                       device=dev),
+                        drop_prob=cfg.drop_prob)
     if cfg.propagation != "power":
         raise NotImplementedError(
             f"propagation={cfg.propagation!r} is not ported yet "

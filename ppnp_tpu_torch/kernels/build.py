@@ -42,8 +42,11 @@ _FUSED_ARGS = [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 2 + [_F] + [_I] * 2 \
 # library name -> {launch function: its argument types}; each returns a
 # CUDA error code
 _ENTRY = {
-    # row_ptr, col, w, h, init, out; n_rows, c, device; stream
-    "spmm": {"ppnp_spmm_csr": [_P] * 6 + [_I] * 3 + [_P]},
+    # row_ptr, col, w, h, init, out; n_rows, c, device; stream, and for
+    # the grouped kernel row_ptr, col, w_g, h, init, out; n_rows, groups,
+    # cg, nnz, device; stream
+    "spmm": {"ppnp_spmm_csr": [_P] * 6 + [_I] * 3 + [_P],
+             "ppnp_grouped_spmm_csr": [_P] * 6 + [_I] * 5 + [_P]},
     "fused": {"ppnp_appnp_fused": _FUSED_ARGS,
               "ppnp_appnp_adjoint": _FUSED_ARGS},
     "masks": {
@@ -58,9 +61,10 @@ _ENTRY = {
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# K1 forward and backward (on the transpose), K3 forward and adjoint, the
-# id-keyed edge masks and the dense dropout mask
+# K1 forward and backward (on the transpose), K2 forward and backward, K3
+# forward and adjoint, the id-keyed edge masks and the dense dropout mask
 LAUNCHES: Dict[str, int] = {"spmm_csr": 0, "spmm_csr_bwd": 0,
+                            "spmm_grouped": 0, "spmm_grouped_bwd": 0,
                             "appnp_fused": 0, "appnp_adjoint": 0,
                             "edge_masks": 0, "dropout_mask": 0}
 

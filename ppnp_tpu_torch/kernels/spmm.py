@@ -15,8 +15,19 @@ edges in CSR order too, so gradients need no atomics and come out the
 same on every run. Forward launches count as ``spmm_csr``, backward ones
 as ``spmm_csr_bwd``.
 
-``spmm_csr`` takes the plain version only for tensors on the CPU. For
-CUDA tensors it launches the kernel or raises; it never falls back.
+K2 (``spmm_csr_grouped``, the port of ``_spmm_kernel_grouped``) is the
+seed-batched form: G weight planes over ONE pattern, H stacked along its
+lanes with group g in columns [g·cg, (g+1)·cg), so column block g of the
+output is ``A_{w_g} @ H_g (+ init_g)``. The kernel is the second one in
+``csrc/spmm.cu``; each output column is bit-equal to a K1 launch on that
+group's slice with that group's plane. ``spmm_grad_grouped`` (the
+counterpart of ``make_spmm_grad_grouped``) runs K2 on the CSR of Aᵀ with
+the same G planes in Aᵀ's order for the backward. K2's launches count as
+``spmm_grouped`` and ``spmm_grouped_bwd``.
+
+``spmm_csr`` and ``spmm_csr_grouped`` take the plain version only for
+tensors on the CPU. For CUDA tensors they launch the kernel or raise; they
+never fall back.
 """
 
 from __future__ import annotations
@@ -28,7 +39,9 @@ import torch
 from ppnp_tpu_torch.kernels import build
 from ppnp_tpu_torch.ops.sparse import CsrMatrix
 
-__all__ = ["spmm_csr", "spmm_csr_plain", "spmm_csr_bwd", "spmm_grad"]
+__all__ = ["spmm_csr", "spmm_csr_plain", "spmm_csr_bwd", "spmm_grad",
+           "spmm_csr_grouped", "spmm_csr_grouped_plain",
+           "spmm_csr_grouped_bwd", "spmm_grad_grouped"]
 
 
 def spmm_csr_plain(a: CsrMatrix, h: torch.Tensor,
@@ -43,10 +56,12 @@ def spmm_csr_plain(a: CsrMatrix, h: torch.Tensor,
     return out.index_add_(0, a.row_ids(), gathered)
 
 
-def _check(a: CsrMatrix, h: torch.Tensor, w, init) -> None:
+def _check(a: CsrMatrix, h: torch.Tensor, w, init, who: str) -> None:
+    """The operand checks both kernels share; ``w`` is checked for type,
+    device and contiguity here and for shape by the caller."""
     def need(cond, msg):
         if not cond:
-            raise ValueError(f"spmm_csr: {msg}")
+            raise ValueError(f"{who}: {msg}")
 
     need(h.dim() == 2 and h.dtype == torch.float32,
          f"h must be 2-D float32, got {tuple(h.shape)} {h.dtype}")
@@ -61,9 +76,7 @@ def _check(a: CsrMatrix, h: torch.Tensor, w, init) -> None:
         need(t.device == h.device,
              f"{name} is on {t.device}, h on {h.device}")
         need(t.is_contiguous(), f"{name} must be contiguous")
-    if w is not None:
-        need(w.dtype == torch.float32 and tuple(w.shape) == (a.nnz,),
-             f"w must be float32 of shape ({a.nnz},)")
+    need(w is None or w.dtype == torch.float32, "weights must be float32")
     if init is not None:
         need(init.dtype == torch.float32
              and tuple(init.shape) == (a.n_rows, h.shape[1]),
@@ -91,7 +104,10 @@ def spmm_csr_bwd(a_t: CsrMatrix, g: torch.Tensor,
 
 def _spmm(a: CsrMatrix, h: torch.Tensor, w: Optional[torch.Tensor],
           init: Optional[torch.Tensor], counter: str) -> torch.Tensor:
-    _check(a, h, w, init)
+    _check(a, h, w, init, "spmm_csr")
+    if w is not None and tuple(w.shape) != (a.nnz,):
+        raise ValueError(f"spmm_csr: w must be of shape ({a.nnz},), got "
+                         f"{tuple(w.shape)}")
     if h.device.type == "cpu":
         return spmm_csr_plain(a, h, w, init)
     if h.device.type != "cuda":
@@ -140,3 +156,97 @@ def spmm_grad(a: CsrMatrix, a_t: CsrMatrix, h: torch.Tensor,
         raise ValueError("spmm_grad: a_t is not shaped as the transpose "
                          "of a")
     return _SpmmGrad.apply(h.contiguous(), init, a, a_t, w, w_t)
+
+
+def spmm_csr_grouped_plain(a: CsrMatrix, h: torch.Tensor,
+                           w_g: torch.Tensor,
+                           init: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch K2: gather H's rows once, scale group g's columns by
+    plane g, then ``index_add_`` onto ``init`` (or zeros)."""
+    groups = w_g.shape[0]
+    gathered = h.index_select(0, a.col).view(a.nnz, groups, -1) \
+        * w_g.t()[:, :, None]
+    out = (init.clone() if init is not None
+           else h.new_zeros((a.n_rows, h.shape[1])))
+    return out.index_add_(0, a.row_ids(), gathered.view(a.nnz, -1))
+
+
+def spmm_csr_grouped(a: CsrMatrix, h: torch.Tensor, w_g: torch.Tensor,
+                     init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2: ``[A_{w_g} @ H_g]_g (+ init)`` → (n_rows, G·cg) float32.
+
+    ``w_g`` is (G, nnz) float32, one plane per group in CSR order; ``h``
+    is (n_cols, G·cg) with group g in columns [g·cg, (g+1)·cg).
+    """
+    return _spmm_grouped(a, h, w_g, init, "spmm_grouped")
+
+
+def spmm_csr_grouped_bwd(a_t: CsrMatrix, g: torch.Tensor,
+                         w_g_t: torch.Tensor) -> torch.Tensor:
+    """The grouped backward's ``[A_{w_g}ᵀ @ g_g]_g`` through the CSR of
+    Aᵀ with the planes in Aᵀ's order (counted as ``spmm_grouped_bwd``)."""
+    return _spmm_grouped(a_t, g, w_g_t, None, "spmm_grouped_bwd")
+
+
+def _spmm_grouped(a: CsrMatrix, h: torch.Tensor, w_g: torch.Tensor,
+                  init: Optional[torch.Tensor], counter: str
+                  ) -> torch.Tensor:
+    if w_g is None or w_g.dim() != 2 or w_g.shape[0] < 1 \
+            or w_g.shape[1] != a.nnz:
+        raise ValueError(f"spmm_csr_grouped: w_g must be of shape (G, "
+                         f"{a.nnz})")
+    _check(a, h, w_g, init, "spmm_csr_grouped")
+    if h.shape[1] % w_g.shape[0]:
+        raise ValueError(f"spmm_csr_grouped: h has {h.shape[1]} columns, "
+                         f"not a multiple of G={w_g.shape[0]}")
+    if h.device.type == "cpu":
+        return spmm_csr_grouped_plain(a, h, w_g, init)
+    if h.device.type != "cuda":
+        raise ValueError(f"spmm_csr_grouped: unsupported device {h.device}")
+    groups, c = w_g.shape[0], h.shape[1]
+    out = torch.empty((a.n_rows, c), dtype=torch.float32, device=h.device)
+    if a.n_rows == 0 or c == 0:
+        return out
+    lib = build.load_library("spmm")
+    err = lib.ppnp_grouped_spmm_csr(
+        a.row_ptr.data_ptr(), a.col.data_ptr(), w_g.data_ptr(),
+        h.data_ptr(), None if init is None else init.data_ptr(),
+        out.data_ptr(), a.n_rows, groups, c // groups, a.nnz,
+        h.device.index or 0, torch.cuda.current_stream(h.device).cuda_stream)
+    build.check_error(lib, err, "spmm_csr_grouped launch")
+    build.LAUNCHES[counter] += 1
+    return out
+
+
+class _SpmmGradGrouped(torch.autograd.Function):
+    """``[A_{w_g} @ h_g]_g + init`` whose backward runs K2 on the
+    transpose."""
+
+    @staticmethod
+    def forward(ctx, h, init, a, a_t, w_g, w_g_t):
+        ctx.a_t, ctx.w_g_t = a_t, w_g_t
+        return spmm_csr_grouped(a, h, w_g, init)
+
+    @staticmethod
+    def backward(ctx, g):
+        dh = (spmm_csr_grouped_bwd(ctx.a_t, g.contiguous(), ctx.w_g_t)
+              if ctx.needs_input_grad[0] else None)
+        dinit = g if ctx.needs_input_grad[1] else None
+        return dh, dinit, None, None, None, None
+
+
+def spmm_grad_grouped(a: CsrMatrix, a_t: CsrMatrix, h: torch.Tensor,
+                      w_g: torch.Tensor, w_g_t: torch.Tensor,
+                      init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable K2: forward through ``a`` with the G planes ``w_g``,
+    backward ``dH = [A_{w_g}ᵀ g_g]_g`` through ``a_t`` with ``w_g_t``, the
+    same planes in ``a_t``'s order, and ``d(init) = g``; nothing flows to
+    the planes (``make_spmm_grad_grouped``)."""
+    if (a_t.n_rows, a_t.n_cols, a_t.nnz) != (a.n_cols, a.n_rows, a.nnz):
+        raise ValueError("spmm_grad_grouped: a_t is not shaped as the "
+                         "transpose of a")
+    if w_g_t is None or tuple(w_g_t.shape) != tuple(w_g.shape):
+        raise ValueError("spmm_grad_grouped: w_g_t must hold the same G "
+                         "planes as w_g, in a_t's order")
+    return _SpmmGradGrouped.apply(h.contiguous(), init, a, a_t, w_g, w_g_t)

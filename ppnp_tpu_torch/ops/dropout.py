@@ -16,6 +16,10 @@ the CPU).
   (key; id_hi, id_lo) is below ``keep·2³²``, survivors ``val / keep``
   (``dropout.py:136-152``). The same key keeps the same edges in a CSR
   matrix and in its transpose.
+- ``edge_dropout_by_id_grouped``: G such planes from G keys in one call,
+  stacked (G, nnz) in CSR order, K2's weight layout
+  (``dropout.py:78-108``); plane g is bit-equal to
+  ``edge_dropout_by_id(keys[g], ...)``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from ppnp_tpu_torch.kernels.masks import dropout_mask, edge_masks
 from ppnp_tpu_torch.ops.sparse import CsrMatrix
 
 __all__ = ["dropout", "edge_dropout", "edge_dropout_by_id",
-           "quantized_keep"]
+           "edge_dropout_by_id_grouped", "quantized_keep"]
 
 
 def quantized_keep(rate: float):
@@ -60,3 +64,13 @@ def edge_dropout_by_id(key, a: CsrMatrix, rate: float) -> torch.Tensor:
         return a.val
     planes, _ = edge_masks([key], a, keep=1.0 - rate)
     return planes[0]
+
+
+def edge_dropout_by_id_grouped(keys, a: CsrMatrix, rate: float
+                               ) -> torch.Tensor:
+    """G id-keyed edge-dropout planes of ``a`` → (G, nnz), one per key of
+    ``keys`` (G, 2), in ONE mask call (one launch per 64 keys)."""
+    if rate <= 0.0:
+        return a.val[None].expand(len(keys), -1).contiguous()
+    planes, _ = edge_masks(keys, a, keep=1.0 - rate)
+    return planes

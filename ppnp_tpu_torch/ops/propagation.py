@@ -24,23 +24,31 @@ The ``pallas`` and ``fused`` arms work in the operator's RCM order: H⁰ is
 permuted once before the loop and the result once after it, as the JAX
 package does (``propagation.py:140-147,197-199``). CSR needs no row
 padding, so unlike the PairChunks path nothing is padded.
+
+``propagate_grouped`` is the seed-batched form
+(``propagation.py:305-397``): G seeds' H stacked along the lanes, each
+seed with its own mask stream. Eval mode is the ordinary propagation on
+the stacked H (K1 at G·c lanes); train mode draws all G·K planes in one
+mask call, step-major, and runs K2 once per step on the pallas arm, or G
+slot-keyed masks per step over the ``EdgeList`` on the xla arm.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ppnp_tpu_torch.kernels.fused import appnp_fused_grad
 from ppnp_tpu_torch.kernels.masks import edge_masks
-from ppnp_tpu_torch.kernels.spmm import spmm_grad
+from ppnp_tpu_torch.kernels.spmm import spmm_grad, spmm_grad_grouped
 from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.ops.dropout import edge_dropout
 from ppnp_tpu_torch.ops.sparse import CsrMatrix, EdgeList
 
-__all__ = ["spmm_edge_list", "PPRPowerIteration"]
+__all__ = ["spmm_edge_list", "PPRPowerIteration", "propagate_grouped"]
 
 BACKENDS = ("xla", "pallas", "fused")
 
@@ -142,3 +150,54 @@ class PPRPowerIteration(nn.Module):
         if idx is not None:
             h = h.index_select(0, idx)
         return h
+
+
+def propagate_grouped(prop: PPRPowerIteration, h0: torch.Tensor, keys=None,
+                      *, train: bool = False, groups: int = 1
+                      ) -> torch.Tensor:
+    """K power-iteration steps over G seed groups stacked along lanes.
+
+    ``h0`` is (n, G·c), seed g's logits in columns [g·c, (g+1)·c);
+    ``keys`` is (G, 2) uint32, one propagation key per seed. Seed g's
+    masks are those of ``prop.propagate(h0_g, key=keys[g], train=True)``
+    bit for bit: each seed splits its own key into K step keys. Eval mode
+    (or no keys) shares Â's weights: the stacked H goes through the
+    ordinary propagation.
+    """
+    apply_drop = bool(train and prop.drop_prob > 0.0 and keys is not None)
+    if not apply_drop:
+        return prop.propagate(h0, train=False)
+    if prop.backend == "fused":
+        raise NotImplementedError(
+            "grouped train-mode propagation: backend 'fused' "
+            "(use 'pallas' or 'xla')")
+    keys = np.asarray(keys, dtype=np.uint32).reshape(groups, 2)
+    # (G, K, 2) -> (K, G, 2): step k's G keys are rows [k·G, (k+1)·G)
+    kiter = np.ascontiguousarray(
+        prng.split(keys, prop.niter).transpose(1, 0, 2))
+    one_minus_alpha = 1.0 - prop.alpha
+    if prop.backend == "xla":
+        edges = prop.edges
+        alpha_h0 = prop.alpha * h0
+        h = h0
+        for k in range(prop.niter):
+            w = torch.stack([edge_dropout(kg, edges.w, prop.drop_prob)
+                             for kg in kiter[k]])           # (G, nnz_pad)
+            gathered = h.index_select(0, edges.src).view(
+                edges.src.shape[0], groups, -1) * w.t()[:, :, None]
+            ah = h.new_zeros(h.shape).index_add_(
+                0, edges.dst, gathered.view(edges.src.shape[0], -1))
+            h = one_minus_alpha * ah + alpha_h0
+        return h
+    a, a_t = prop.csr, prop.csr_t
+    hp = h0.index_select(0, a.perm) if a.perm is not None else h0
+    hp = hp.contiguous()
+    planes, planes_t = edge_masks(kiter.reshape(-1, 2), a, a_t,
+                                  keep=1.0 - prop.drop_prob,
+                                  scale=one_minus_alpha)
+    init = prop.alpha * hp  # α·H⁰, packed order
+    for k in range(prop.niter):
+        rows = slice(k * groups, (k + 1) * groups)
+        hp = spmm_grad_grouped(a, a_t, hp, planes[rows], planes_t[rows],
+                               init)
+    return hp.index_select(0, a.iperm) if a.iperm is not None else hp

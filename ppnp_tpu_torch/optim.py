@@ -15,11 +15,16 @@ follows ``optax.scale_by_adam`` + ``scale_by_learning_rate``
 
 The f32 power ``b^t`` may differ from XLA's by one unit in the last place;
 everything else rounds as optax does.
+
+``step(grads, mask=...)`` is the seed-batched update of
+``ppnp_tpu/multiseed.py::_mask_tree``: parameters stacked along a leading
+G axis, and seeds whose ``mask`` entry is False keep their parameters and
+moments. The shared count advances on every step, as it does there.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,15 +48,26 @@ class Adam:
         return float(np.float32(1) - np.float32(b) ** np.float32(self.count))
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
-        """One update with ``grads`` (one per parameter)."""
+    def step(self, grads: Sequence[torch.Tensor],
+             mask: Optional[torch.Tensor] = None) -> None:
+        """One update with ``grads`` (one per parameter). With ``mask``, a
+        (G,) bool tensor over every parameter's leading axis, only the
+        entries where it is True change."""
         self.count = min(self.count + 1, 2 ** 31 - 1)
         c1, c2 = self._correction(self.b1), self._correction(self.b2)
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-            m_hat, v_hat = mu / c1, nu / c2
-            p.add_((-self.lr) * (m_hat / (torch.sqrt(v_hat) + self.eps)))
+            new_mu = (1 - self.b1) * g + self.b1 * mu
+            new_nu = (1 - self.b2) * (g * g) + self.b2 * nu
+            m_hat, v_hat = new_mu / c1, new_nu / c2
+            new_p = p + (-self.lr) * (m_hat / (torch.sqrt(v_hat) + self.eps))
+            if mask is not None:
+                keep = mask.view((-1,) + (1,) * (p.dim() - 1))
+                new_mu = torch.where(keep, new_mu, mu)
+                new_nu = torch.where(keep, new_nu, nu)
+                new_p = torch.where(keep, new_p, p)
+            mu.copy_(new_mu)
+            nu.copy_(new_nu)
+            p.copy_(new_p)
 
     def state_dict(self) -> Dict[str, Any]:
         """``{count, mu, nu}`` on the CPU (``optax``'s ScaleByAdamState)."""

@@ -377,10 +377,12 @@ def train_model(
     # Effective propagation bandwidth from the steady-state chunk EMA: an
     # epoch moves ~3·K SpMMs (forward K, backward K, stopping eval K),
     # each touching the edge stream (nnz·8 B) and H in and out (2·n·c·4 B).
+    # Only where there is an edge operator (not for exact PPNP).
     niter = getattr(propagator, "niter", None)
-    op = propagator.edges if propagator.edges is not None \
-        else propagator.csr
-    if ema_chunk_s and niter:
+    op = getattr(propagator, "edges", None)
+    if op is None:
+        op = getattr(propagator, "csr", None)
+    if ema_chunk_s and niter and op is not None:
         bytes_per_step = op.nnz * 8 + 2 * x.shape[0] * n_classes * 4
         result["spmm_gbps"] = (epoch_chunk * 3 * niter * bytes_per_step
                                / ema_chunk_s / 1e9)

@@ -202,3 +202,87 @@ def test_dropout_mask_bit_equal_to_the_cpu(dev, shape):
     assert build.LAUNCHES["dropout_mask"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), dropout_mask_plain(key, shape, 179))
+
+
+@pytest.mark.parametrize("groups,cg", [(1, 15), (3, 5), (10, 15), (10, 64)])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_grouped_kernel_bit_equal_to_k1_launches(dev, groups, cg,
+                                                 with_init):
+    """K2 over G planes: each column block bit-equal to a K1 launch on
+    that group's slice with that group's plane, and within the tolerance
+    of the plain version; one launch counted."""
+    from ppnp_tpu_torch.kernels.spmm import (spmm_csr_grouped,
+                                             spmm_csr_grouped_plain)
+    a = _matrix(700, 500, 0.02, seed=groups * cg, hubs=True)
+    csr = csr_from_scipy(a, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(cg)
+    h = torch.randn(500, groups * cg, device=dev, generator=gen)
+    init = (torch.randn(700, groups * cg, device=dev, generator=gen)
+            if with_init else None)
+    planes = csr.val * torch.rand(groups, csr.nnz, device=dev,
+                                  generator=gen)
+    before = dict(build.LAUNCHES)
+    out = spmm_csr_grouped(csr, h, planes, init)
+    assert build.LAUNCHES["spmm_grouped"] == before["spmm_grouped"] + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, spmm_csr_grouped_plain(csr, h, planes, init), **TOL)
+    for g in range(groups):
+        cols = slice(g * cg, (g + 1) * cg)
+        ref = spmm_csr(csr, h[:, cols].contiguous(), planes[g],
+                       None if init is None else init[:, cols].contiguous())
+        assert torch.equal(out[:, cols], ref)
+
+
+@pytest.mark.parametrize("groups,cg", [(3, 5), (10, 64)])
+def test_grouped_backward_matches_plain(dev, groups, cg):
+    """``spmm_grad_grouped``: the backward is K2 on the CSR of Aᵀ (rows of
+    a rectangular Xᵀ, hub and empty rows), counted as backward launches."""
+    from ppnp_tpu_torch.kernels.spmm import (spmm_csr_grouped_plain,
+                                             spmm_grad_grouped)
+    a = _matrix(300, 900, 0.02, seed=cg, hubs=True)
+    csr = csr_from_scipy(a, device=dev)
+    csr_t = csr_transpose(csr)
+    keys = prng.split(prng.PRNGKey(cg), groups)
+    planes, planes_t = edge_masks(keys, csr, csr_t, keep=0.5)
+    gen = torch.Generator(device=dev).manual_seed(cg)
+    h = torch.randn(900, groups * cg, device=dev, generator=gen,
+                    requires_grad=True)
+    g = torch.randn(300, groups * cg, device=dev, generator=gen)
+    before = build.LAUNCHES["spmm_grouped_bwd"]
+    (spmm_grad_grouped(csr, csr_t, h, planes, planes_t) * g).sum().backward()
+    assert build.LAUNCHES["spmm_grouped_bwd"] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        h.grad, spmm_csr_grouped_plain(csr_t, g, planes_t), **TOL)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_train_models_on_the_card_matches_the_cpu(dev, backend):
+    """A short seed-batched run (3 seeds, sparse X, 6 epochs) on the card
+    and on the CPU: the same stopping decisions and valtest accuracy, and
+    weights within rtol 1e-4 / atol 1e-5 (f32 summation order only; the
+    masks are bit-equal)."""
+    from ppnp_tpu_torch import builders
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
+    from ppnp_tpu_torch.multiseed import train_models
+
+    graph = make_attributed_sbm(n_nodes=1200, n_classes=5, n_features=300,
+                                n_edges=6000, seed=3).standardize()
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        prop = builders.build_propagator(
+            RunConfig(backend=backend, niter=4, drop_prob=0.5), graph,
+            device=d)
+        runs.append(train_models(
+            graph, prop, [1, 2, 3], test=True, x_format="sparse",
+            idx_split_args={"ntrain_per_class": 10, "nstopping": 100,
+                            "nknown": 400, "seed": 1},
+            stopping_args={"max_epochs": 6, "patience": 100}))
+    for (m_cpu, r_cpu), (m_card, r_card) in zip(*runs):
+        assert (r_card["best_epoch"], r_card["last_epoch"]) == (
+            r_cpu["best_epoch"], r_cpu["last_epoch"])
+        assert r_card["valtest"]["accuracy"] == r_cpu["valtest"]["accuracy"]
+        for a, b in zip(m_card.parameters(), m_cpu.parameters()):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)

@@ -91,6 +91,8 @@ def test_other_entry_points_default_to_cuda(no_cuda, tmp_path):
         main(["predict", "--checkpoint-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["train", "--max-epochs", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["reproduce", "--max-epochs", "1", "--nseeds", "1"])
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")

@@ -213,8 +213,7 @@ def test_not_ported_options_raise(port_graph):
     prop = types.SimpleNamespace(device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_train.prepare_attr_input(graph, prop, x_dtype="bfloat16")
-    for cfg in (TRunConfig(propagation="exact"),
-                TRunConfig(propagation="sharded"),
+    for cfg in (TRunConfig(propagation="sharded"),
                 TRunConfig(backend="blocked")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_builders.build_propagator(cfg, port_graph, device="cpu")
