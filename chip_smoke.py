@@ -15,11 +15,14 @@ order; any failure exits non-zero and nothing is caught:
    c = 64), K3 forward and adjoint (K reversed masked planes); the mask
    kernels bit-equal to their plain int64 Threefry run on the CPU. Time
    kernel, plain version and the nearest single PyTorch call (CUDA
-   events).
+   events); every kernel also gives the same bits when launched twice
+   on the same inputs.
    K2 (grouped, G = 10 seeds) is held the same way at the propagation
    step (150 lanes, with init) and its backward on Âᵀ, and at the sparse
    fc1 (640 lanes) and its backward on Xᵀ, and bit for bit against G K1
-   launches on the per-group slices;
+   launches on the per-group slices; K1 also at the batched sweep's eval
+   shapes (the step at G·c = 150 lanes with init and one shared plane,
+   fc1 at G·hidden = 640 lanes);
 4. serving: write a checkpoint of random weights from a seeded
    generator, then run ``python -m ppnp_tpu_torch predict`` in process
    through the xla, pallas and fused backends, several requests each;
@@ -144,6 +147,14 @@ def compare(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
+def band_distinct(m, band: int) -> float:
+    """Distinct columns over edges, counted per band of ``band``
+    consecutive rows of the CSR operator ``m`` (on the host)."""
+    rp, col = m.row_ptr.cpu(), m.col.cpu()
+    return sum(torch.unique(col[rp[s]:rp[min(s + band, m.n_rows)]]).numel()
+               for s in range(0, m.n_rows, band)) / m.nnz
+
+
 def csr_tensor(a, values):
     return torch.sparse_csr_tensor(a.row_ptr, a.col, values,
                                    size=(a.n_rows, a.n_cols))
@@ -152,9 +163,16 @@ def csr_tensor(a, values):
 def record(name, kernel, plain, library, bytes_moved, flops,
            exact_ref=None, **extra_ms):
     """Compare (bit-equal to ``exact_ref`` where one is given, else within
-    the tolerance of the plain version) and time kernel, plain version,
-    library call and each of ``extra_ms`` (name: function)."""
+    the tolerance of the plain version), check that a second launch gives
+    the same bits, and time kernel, plain version, library call and each
+    of ``extra_ms`` (name: function)."""
     out = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, a) for o, a in
+               zip(*((out, again) if isinstance(out, tuple)
+                     else ((out,), (again,))))):
+        raise SystemExit(f"{name}: two launches on the same inputs differ")
     if exact_ref is not None:
         torch.cuda.synchronize()
         for o, r in zip(out, exact_ref):
@@ -171,7 +189,8 @@ def record(name, kernel, plain, library, bytes_moved, flops,
                bound_ms=b_ms, bound_by=b_by, call_ms=call_ms(kernel),
                **{k: time_ms(fn) for k, fn in extra_ms.items()})
     print(f"{name}: max_abs_err={err:.3g} "
-          f"({'bit-equal' if exact_ref is not None else f'tol rtol=atol={RTOL}'}) "
+          f"({'bit-equal' if exact_ref is not None else f'tol rtol=atol={RTOL}'}"
+          "; two launches bit-equal) "
           + " ".join(f"{k}={v}" for k, v in rec.items()
                      if k != "max_abs_err"))
     return rec
@@ -211,6 +230,13 @@ def kernel_phases(dev):
     ws, ws_t = prop.w_scaled, prop.w_t_scaled
     print(f"shapes: n={n} nnz(A)={a.nnz} c={c} | X {n}x{f} "
           f"nnz(X)={x.nnz} hidden={hidden} | alpha={alpha} K={niter}")
+    ops = (("A", a), ("A^T", a_t), ("X", x), ("X^T", x_t))
+    print("entries per row (mean, max): " + ", ".join(
+        f"{name} {m.nnz / m.n_rows:.2f}, {int(torch.diff(m.row_ptr).max())}"
+        for name, m in ops))
+    print("distinct rows of H gathered per 512-row band, over edges (the "
+          "most L1 could serve is 1 minus this): " + ", ".join(
+              f"{name} {band_distinct(m, 512):.3f}" for name, m in ops))
 
     recs = {}
     # K1 at the propagation step: (1-α)Â @ H + α·H⁰
@@ -303,14 +329,19 @@ def grouped_kernel_phase(dev):
     propagation step (cg = 15, 150 lanes, with init) and its backward on
     Âᵀ, the sparse fc1 (X with G planes, cg = 64, 640 lanes) and its
     backward on Xᵀ; each within the tolerance of the plain version and
-    bit-equal to G K1 launches on the per-group slices. Returns the
-    records of ``spmm_grouped`` and ``spmm_grouped_bwd``."""
+    bit-equal to G K1 launches on the per-group slices. Also K1 at the
+    batched eval's shapes: the step on the lane-stacked H (G·c = 150
+    lanes, init, the one shared plane of (1-α)Â) and fc1 on the
+    lane-stacked W₁ (G·hidden = 640 lanes). Returns the records of
+    ``spmm_grouped`` and ``spmm_grouped_bwd``, and K1's batched-eval
+    records under ``spmm_csr``."""
     from ppnp_tpu_torch.builders import build_propagator, load_graph
     from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.kernels.masks import edge_masks
     from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_grouped,
                                              spmm_csr_grouped_bwd,
-                                             spmm_csr_grouped_plain)
+                                             spmm_csr_grouped_plain,
+                                             spmm_csr_plain)
     from ppnp_tpu_torch.ops import prng
     from ppnp_tpu_torch.reproduce import DEFAULT_SEEDS
     from ppnp_tpu_torch.train import prepare_attr_input
@@ -411,7 +442,25 @@ def grouped_kernel_phase(dev):
                  (f + 1) * 4 + x_t.nnz * 4 + groups * x_t.nnz * 4
                  + (n + f) * lanes_x * 4, 2 * x_t.nnz * lanes_x,
                  per_group(k1(x_t), dh, planes_xt, None, hidden))
+    # K1 in the batched eval forward: K steps on the lane-stacked H with
+    # the shared (1-α)Â weights, and fc1 on the lane-stacked W₁
+    ws = prop.w_scaled
+    a_lib1 = csr_tensor(a, ws)
+    eval_step = record(f"K1 eval step ({lanes} lanes)",
+                       lambda: spmm_csr(a, h, ws, init),
+                       lambda: spmm_csr_plain(a, h, ws, init),
+                       lambda: torch.addmm(init, a_lib1, h),
+                       (n + 1) * 4 + a.nnz * 8 + 3 * n * lanes * 4,
+                       2 * a.nnz * lanes + n * lanes)
+    x_lib1 = csr_tensor(x, x.val)
+    eval_fc1 = record(f"K1 eval fc1 ({lanes_x} lanes)",
+                      lambda: spmm_csr(x, w1s),
+                      lambda: spmm_csr_plain(x, w1s),
+                      lambda: torch.sparse.mm(x_lib1, w1s),
+                      (n + 1) * 4 + x.nnz * 8 + (f + n) * lanes_x * 4,
+                      2 * x.nnz * lanes_x)
     return {
+        "spmm_csr": {"eval_step": eval_step, "eval_fc1": eval_fc1},
         "spmm_grouped": dict(step, max_abs_err=max(step["max_abs_err"],
                                                    fc1["max_abs_err"]),
                              fc1=fc1),
@@ -1020,7 +1069,12 @@ def main() -> int:
                 print(f"  nvcc {name}: {line.strip()}")
 
     recs = kernel_phases(dev)
-    recs.update(grouped_kernel_phase(dev))
+    grouped = grouped_kernel_phase(dev)
+    k1_eval = grouped.pop("spmm_csr")
+    recs["spmm_csr"].update(k1_eval, max_abs_err=max(
+        [recs["spmm_csr"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in k1_eval.values()]))
+    recs.update(grouped)
     launches = {f"predict {b}": v for b, v in serving_path(dev).items()}
     trained, epoch_ms = training_path(dev)
     launches.update({f"train {b}": v for b, v in trained.items()})

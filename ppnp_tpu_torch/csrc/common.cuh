@@ -1,10 +1,11 @@
 // Shared pieces of the port's CUDA kernels (spmm.cu, fused.cu, masks.cu).
 //
 // The SpMM kernels compute rows of A_w @ H (+ init) for a CSR matrix A
-// whose edge weights w may be overridden per call. A group of TPR threads
-// owns one output row; its lanes stride over the feature columns, and each
-// output element sums its row's edges one by one in CSR order. The sum
-// order is therefore fixed: no atomics, the same bits on every run.
+// whose edge weights w may be overridden per call. Each output element
+// sums its row's edges one by one in CSR order, so the sum order is fixed:
+// no atomics, the same bits on every run. In fused.cu a group of TPR
+// threads owns one output row and its lanes stride over the feature
+// columns (row_dot below); spmm.cu states its own layout.
 //
 // The mask kernels draw with threefry2x32, the 20-round Threefry-2x32 of
 // ppnp_tpu/ops/hashrng.py (and of jax.random), on uint32 registers.

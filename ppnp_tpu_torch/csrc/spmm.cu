@@ -1,149 +1,307 @@
-// K1: out = A_w @ H (+ init) for a CSR matrix A, on Hopper (sm_90a).
+// K1 and K2: CSR SpMM on Hopper (sm_90a). One kernel serves both.
 //
-// Replaces the TPU kernel ppnp_tpu/kernels/spmm.py::_spmm_kernel (launched
-// by spmm_pair_chunks, and by its VJP _spmm_vjp_bwd on the transpose
-// packing). On the TPU the kernel turned gather and scatter into one-hot
-// MXU matmuls over the PairChunks packing; here a thread group gathers H's
-// rows directly from CSR, so no packing is needed, and the backward
-// dH = A_w^T g is this same kernel on the CSR of A^T with the same masked
-// weights in A^T's order.
-//
-// Bound on this card: bytes. Per call the kernel must read row_ptr, col
-// and w (4 + 8 B per edge), H once and init once, and write out once, and
-// it does 2 flops per edge and column: at MS Academic (206,015 edges,
-// 18,331 rows, c = 15) that is ~5 MB, about 1.5 us at 3.35 TB/s, against
-// ~6 MFLOP, about 0.1 us of the 67 TFLOP/s f32 rate. So launch latency
-// (a few us) dominates one call.
-//
-// Design: one group of TPR threads per output row (TPR = 8, 16 or 32 from
-// c), lanes over the feature columns, so neighbouring threads read
-// neighbouring floats of a gathered H row. Each element starts from init
-// (or 0: rows without edges still produce init, as the TPU kernel seeds
-// its accumulator) and adds its edges in CSR order, so the result is
-// deterministic and needs no atomics. The whole ~5 MB working set sits in
-// the 50 MB L2 across the ten calls of one request. wgmma and TMA do not
-// apply to a gather of 60-byte rows; fewer launches (K3) is the lever.
+// K1: out = A_w @ H (+ init) for a CSR matrix A whose edge weights w may
+// be overridden per call. Replaces the TPU kernel
+// ppnp_tpu/kernels/spmm.py::_spmm_kernel (launched by spmm_pair_chunks,
+// and by its VJP _spmm_vjp_bwd on the transpose packing). On the TPU the
+// kernel turned gather and scatter into one-hot MXU matmuls over the
+// PairChunks packing; here a thread group gathers H's rows directly from
+// CSR, and the backward dH = A_w^T g is this same kernel on the CSR of A^T
+// with the same masked weights in A^T's order.
 //
 // K2: out[:, g*cg + j] = init[:, g*cg + j] + sum_e w_g[g, e] * H[col[e], g*cg + j]
-// for G weight planes over ONE sparse pattern (grouped_spmm_csr_kernel).
-//
-// Replaces the TPU kernel ppnp_tpu/kernels/spmm.py::_spmm_kernel_grouped
+// for G weight planes (G x nnz, CSR order) over ONE sparse pattern.
+// Replaces ppnp_tpu/kernels/spmm.py::_spmm_kernel_grouped
 // (spmm_pair_chunks_grouped, and its VJP _spmm_vjp_grouped on the
-// transpose packing): G seeds' features stacked along the lanes of H,
-// each seed with its own edge-dropout plane. On the TPU one unweighted
-// gather dot served all G groups and the planes applied as per-group VPU
-// multiplies; that trick is about MXU issue slots and does not carry over.
+// transpose packing): G seeds' features stacked along the lanes of H, each
+// seed with its own edge-dropout plane. K1 is K2 with G = 1 and cg = c.
 //
-// Bound on this card: bytes. At MS Academic, G = 10, the propagation step
-// (cg = 15, 150 lanes, with init) must read col (0.8 MB), the ten planes
-// (8.2 MB), H and init and write out (3 x 11.0 MB): ~42 MB, ~12.6 us at
-// 3.35 TB/s; the sparse fc1 (X, cg = 64, 640 lanes) and its backward on
-// X^T ~71 MB each, ~21 us. Its ~2 flops per edge and lane are ~1 % of
-// that at the 67 TFLOP/s f32 rate.
+// The invariant: each output element is acc = init[i, j] (or 0), then
+// acc = fmaf(w[e], H[col[e], j], acc) for e in CSR order of row i. So the
+// result is deterministic (no atomics), each K2 column is bit-equal to a
+// K1 launch on its group's slice with its plane, and no launch shape
+// changes an element's bits.
 //
-// Design: K1's, over all G*cg lanes. One group of TPR threads per output
-// row (32 here), lanes striding over the G*cg columns; column j belongs to
-// group g = j / cg and reads plane g (w_g[g * nnz + e]). Each element
-// starts from init (or 0) and adds its edges in CSR order with fmaf, so
-// every output column is bit-equal to a K1 launch on that group's slice
-// with that group's plane, as the TPU kernel is bit-equal to G K1 calls
-// (spmm.py:140-142). The lever over G K1 launches: one launch gathers each
-// H row (and reads col) once for all G groups, where G launches would
-// gather it G times. Reading the planes per lane group is uncoalesced
-// across groups; a coalesced (nnz, G) layout is later work.
+// Bound on this card: bytes. Per call the kernel must read row_ptr, col
+// and the G planes, H once and init once, and write out once; it does 2
+// flops per edge and column, ~1 % of the byte time at the 67 TFLOP/s f32
+// rate. At MS Academic: K1 at the propagation step (206,015 edges, 18,331
+// rows, c = 15) ~5 MB, 1.5 us at 3.35 TB/s; K2 at G = 10 (150 lanes, with
+// init) ~42 MB, 12.6 us; the sparse fc1 on X and its backward on X^T (640
+// lanes) ~71 MB, 21 us. The gather reads one H row slice per edge from L2
+// (~124 MB at the K2 step, ~375 MB at fc1), and L1 serves little of it:
+// even 512 consecutive rows of the RCM-ordered operators gather 75 %
+// distinct rows. So the floor in practice is the L2-to-SM rate.
+//
+// Design:
+// - A group of L lanes (8, 16 or 32: the fewest that cover the row's
+//   vector slots, so c = 15 packs two rows into a warp) owns one row and
+//   one column tile of L * VEC * V columns. Each lane keeps V register
+//   accumulators of VEC floats (float4 / float2 loads where cg and the
+//   pointers allow; V * VEC <= 8).
+// - Edges outer, columns inner: one pass over a row's edges per tile,
+//   where a lane that strides over the columns walks the row once per
+//   column it owns (5 walks at 150 lanes, 20 at 640). The loop body is unrolled
+//   over D edges, so their gathers are in flight before their fmaf chains.
+//   col and the planes are read per edge through L1: every lane of a
+//   group reads the same word, one request for the group. Staging a row's
+//   edges in shared memory or registers (shuffles) measured slower on the
+//   H100: the latency and registers it costs exceed the L1 hits it saves.
+// - Rows wider than one warp tile (640 lanes: 160 float4 slots) are cut
+//   into column tiles of one slot per lane, a 2-D grid of (rows, tiles):
+//   more, lighter warps beat deeper register tiles. With many rows (X:
+//   18,331) the tiles are 8 lanes wide, with few (X^T: 6,805) 32.
+// - Output is written with streaming stores: out is not read again in the
+//   launch, and evicting it first keeps H's rows in L2.
+// - One column per lane (odd widths up to 16, as c = 15) is the per-lane
+//   walk ppnp::row_dot that K3 uses too: there it already is one pass,
+//   and it measured fastest.
+// - Not used: wgmma / tensor cores (an f32 gather at ~2 flops per gathered
+//   float with a bit-exact order has no matrix tile to multiply) and TMA
+//   (Hopper's tile copies cannot gather rows by index).
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
-template <int TPR>
-__global__ void __launch_bounds__(ppnp::kBlock)
-spmm_csr_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
-                const float* __restrict__ w, const float* __restrict__ h,
-                const float* __restrict__ init, float* __restrict__ out,
-                int n_rows, int c) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int row = static_cast<int>(t / TPR);
-  const int lane = static_cast<int>(t % TPR);
-  if (row >= n_rows) return;
-  const int beg = row_ptr[row];
-  const int end = row_ptr[row + 1];
-  const size_t base = static_cast<size_t>(row) * c;
-  for (int j = lane; j < c; j += TPR) {
-    const float acc = init != nullptr ? init[base + j] : 0.0f;
-    out[base + j] = ppnp::row_dot<false>(col, w, h, beg, end, c, j, acc);
+constexpr int kMaxFloats = 8;  // register floats per lane and edge
+// Operators with at least this many rows cut wide rows into 8-lane tiles.
+constexpr int kManyRows = 1 << 14;
+
+// Edges per unrolled loop body: about 10 floats per lane in flight, at
+// most 4 edges (measured: 4 edges at c = 64, 2 at the K2 step).
+template <int VEC, int V>
+__host__ __device__ constexpr int depth() {
+  return 10 / (V * VEC) < 1 ? 1 : (10 / (V * VEC) > 4 ? 4 : 10 / (V * VEC));
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = t.x, x[1] = t.y;
+  } else {
+    x[0] = __ldg(p);
   }
 }
 
-template <int TPR>
-void launch(const int* row_ptr, const int* col, const float* w,
-            const float* h, const float* init, float* out, int n_rows, int c,
-            cudaStream_t stream) {
-  const long long threads = static_cast<long long>(n_rows) * TPR;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + ppnp::kBlock - 1) / ppnp::kBlock);
-  spmm_csr_kernel<TPR><<<blocks, ppnp::kBlock, 0, stream>>>(
-      row_ptr, col, w, h, init, out, n_rows, c);
-}
-
-template <int TPR>
-__global__ void __launch_bounds__(ppnp::kBlock)
-grouped_spmm_csr_kernel(const int* __restrict__ row_ptr,
-                        const int* __restrict__ col,
-                        const float* __restrict__ w_g,
-                        const float* __restrict__ h,
-                        const float* __restrict__ init,
-                        float* __restrict__ out, int n_rows, int cg, int c,
-                        int nnz) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int row = static_cast<int>(t / TPR);
-  const int lane = static_cast<int>(t % TPR);
-  if (row >= n_rows) return;
-  const int beg = row_ptr[row];
-  const int end = row_ptr[row + 1];
-  const size_t base = static_cast<size_t>(row) * c;
-  for (int j = lane; j < c; j += TPR) {
-    const float* w = w_g + static_cast<size_t>(j / cg) * nnz;
-    const float acc = init != nullptr ? init[base + j] : 0.0f;
-    out[base + j] = ppnp::row_dot<false>(col, w, h, beg, end, c, j, acc);
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
+  if constexpr (VEC == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
+  } else if constexpr (VEC == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(x[0], x[1]));
+  } else {
+    __stcs(p, x[0]);
   }
 }
 
-template <int TPR>
-void launch_grouped(const int* row_ptr, const int* col, const float* w_g,
-                    const float* h, const float* init, float* out,
-                    int n_rows, int cg, int c, int nnz, cudaStream_t stream) {
-  const long long threads = static_cast<long long>(n_rows) * TPR;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + ppnp::kBlock - 1) / ppnp::kBlock);
-  grouped_spmm_csr_kernel<TPR><<<blocks, ppnp::kBlock, 0, stream>>>(
-      row_ptr, col, w_g, h, init, out, n_rows, cg, c, nnz);
+// Grid: x over blocks of kBlock / L rows, y over column tiles.
+template <int L, int VEC, int V>
+__global__ void __launch_bounds__(ppnp::kBlock)
+spmm_rows_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                 const float* __restrict__ w_g, const float* __restrict__ h,
+                 const float* __restrict__ init, float* __restrict__ out,
+                 int n_rows, int c, int cg, int nnz) {
+  constexpr int D = depth<VEC, V>();
+  constexpr int kStep = L * VEC;  // columns between a lane's slots
+  const int lane = threadIdx.x % L;
+  const int row = blockIdx.x * (ppnp::kBlock / L) + threadIdx.x / L;
+  if (row >= n_rows) return;
+  const int j0 = blockIdx.y * (kStep * V) + lane * VEC;  // first slot
+  const size_t base = static_cast<size_t>(row) * c;
+
+  if constexpr (V == 1 && VEC == 1) {  // one column per lane
+    if (j0 >= c) return;
+    const float* w =
+        cg >= c ? w_g : w_g + static_cast<size_t>(j0 / cg) * nnz;
+    const float acc = init != nullptr ? init[base + j0] : 0.0f;
+    __stcs(out + base + j0,
+           ppnp::row_dot<false>(col, w, h, row_ptr[row], row_ptr[row + 1], c,
+                                j0, acc));
+    return;
+  }
+
+  // Each slot (VEC columns) lies in one group, since VEC divides cg; its
+  // plane is w_g + g * nnz (a slot past c reads plane 0 and is not used).
+  // K1 (cg == c) has one plane and no division.
+  const float* w_slot[V];
+  bool live[V];
+  float acc[V][VEC];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    live[v] = j0 + v * kStep < c;
+    w_slot[v] = w_g;
+    if (live[v] && init != nullptr) {
+      load_vec<VEC>(init + base + j0 + v * kStep, acc[v]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc[v][q] = 0.0f;
+    }
+  }
+  bool one_plane = true;  // this lane's slots share one plane
+  if (cg < c) {
+    int g = j0 / cg;
+    int r = j0 - g * cg;
+    const int step_g = kStep / cg;
+    const int step_r = kStep - step_g * cg;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (live[v]) w_slot[v] = w_g + static_cast<size_t>(g) * nnz;
+      one_plane = one_plane && w_slot[v] == w_slot[0];
+      g += step_g;
+      r += step_r;
+      if (r >= cg) r -= cg, ++g;
+    }
+  }
+
+  // Edges outer, columns inner: one pass over the row.
+  const float* h_lane = h + j0;
+  const int end = row_ptr[row + 1];
+#pragma unroll (D)
+  for (int e = row_ptr[row]; e < end; ++e) {
+    const float* src = h_lane + static_cast<size_t>(__ldg(col + e)) * c;
+    const float w0 = __ldg(w_slot[0] + e);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float wt = one_plane || v == 0 ? w0 : __ldg(w_slot[v] + e);
+      if (live[v]) {
+        float x[VEC];
+        load_vec<VEC>(src + v * kStep, x);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) acc[v][q] = fmaf(wt, x[q], acc[v][q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    if (live[v]) store_vec<VEC>(out + base + j0 + v * kStep, acc[v]);
+  }
+}
+
+struct Shape {
+  int lanes, vec, v, tiles;
+};
+
+bool aligned(const void* p, int vec) {
+  return reinterpret_cast<std::uintptr_t>(p) % (4 * vec) == 0;
+}
+
+// VEC: the widest of float4 / float2 / float that divides cg and the
+// operands' alignment. Lanes: the fewest of 8, 16, 32 that cover the
+// row's slots. Above 32 slots a warp holds V slots per lane for one pass
+// over the row while V * VEC <= 8 floats; wider rows are cut into tiles
+// of one slot per lane.
+Shape choose_shape(int n_rows, int c, int cg, const float* h,
+                   const float* init) {
+  int vec = 4;
+  while (vec > 1 && (cg % vec != 0 || !aligned(h, vec) ||
+                     (init != nullptr && !aligned(init, vec))))
+    vec /= 2;
+  const int slots = c / vec;
+  Shape s{32, vec, 1, 1};
+  if (slots <= 8) {
+    s.lanes = 8;
+  } else if (slots <= 16) {
+    s.lanes = 16;
+  } else if ((slots + 31) / 32 * vec <= kMaxFloats) {
+    s.v = (slots + 31) / 32;
+  } else if (n_rows >= kManyRows) {
+    s.lanes = 8;
+  }
+  const int tile = s.lanes * s.vec * s.v;
+  s.tiles = (c + tile - 1) / tile;
+  return s;
+}
+
+template <int L, int VEC, int V>
+void launch(const Shape& s, const int* row_ptr, const int* col,
+            const float* w_g, const float* h, const float* init, float* out,
+            int n_rows, int c, int cg, int nnz, cudaStream_t stream) {
+  constexpr int kRows = ppnp::kBlock / L;
+  const dim3 grid((n_rows + kRows - 1) / kRows, s.tiles);
+  spmm_rows_kernel<L, VEC, V><<<grid, ppnp::kBlock, 0, stream>>>(
+      row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz);
+}
+
+// The shapes choose_shape gives: V = 1 for 8 and 16 lanes; for 32 lanes
+// V * VEC <= 8.
+template <int VEC>
+void launch_vec(const Shape& s, const int* row_ptr, const int* col,
+                const float* w_g, const float* h, const float* init,
+                float* out, int n_rows, int c, int cg, int nnz,
+                cudaStream_t stream) {
+#define PPNP_LAUNCH(L_, V_)                                                 \
+  launch<L_, VEC, (V_ * VEC <= kMaxFloats ? V_ : 1)>(                       \
+      s, row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz, stream);     \
+  break
+  if (s.lanes == 8) {
+    launch<8, VEC, 1>(s, row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz,
+                      stream);
+  } else if (s.lanes == 16) {
+    launch<16, VEC, 1>(s, row_ptr, col, w_g, h, init, out, n_rows, c, cg,
+                       nnz, stream);
+  } else {
+    switch (s.v) {
+      case 1: PPNP_LAUNCH(32, 1);
+      case 2: PPNP_LAUNCH(32, 2);
+      case 3: PPNP_LAUNCH(32, 3);
+      case 4: PPNP_LAUNCH(32, 4);
+      case 5: PPNP_LAUNCH(32, 5);
+      case 6: PPNP_LAUNCH(32, 6);
+      case 7: PPNP_LAUNCH(32, 7);
+      default: PPNP_LAUNCH(32, 8);
+    }
+  }
+#undef PPNP_LAUNCH
+}
+
+void launch_shape(const Shape& s, const int* row_ptr, const int* col,
+                  const float* w_g, const float* h, const float* init,
+                  float* out, int n_rows, int c, int cg, int nnz,
+                  cudaStream_t stream) {
+  switch (s.vec) {
+    case 4:
+      launch_vec<4>(s, row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz,
+                    stream);
+      break;
+    case 2:
+      launch_vec<2>(s, row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz,
+                    stream);
+      break;
+    default:
+      launch_vec<1>(s, row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz,
+                    stream);
+      break;
+  }
+}
+
+int spmm(const int* row_ptr, const int* col, const float* w_g,
+         const float* h, const float* init, float* out, int n_rows,
+         int groups, int cg, int nnz, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int c = groups * cg;
+  launch_shape(choose_shape(n_rows, c, cg, h, init), row_ptr, col, w_g, h,
+               init, out, n_rows, c, cg, nnz,
+               static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream) and returns
-// cudaGetLastError(); 0 means the launch was accepted. `init` may be null.
+// K1 on `stream` (PyTorch's current stream); returns cudaGetLastError(),
+// 0 when the launch was accepted. `init` may be null.
 extern "C" int ppnp_spmm_csr(const int* row_ptr, const int* col,
                              const float* w, const float* h,
                              const float* init, float* out, int n_rows, int c,
                              int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ppnp::threads_per_row(c)) {
-    case 8:
-      launch<8>(row_ptr, col, w, h, init, out, n_rows, c, s);
-      break;
-    case 16:
-      launch<16>(row_ptr, col, w, h, init, out, n_rows, c, s);
-      break;
-    default:
-      launch<32>(row_ptr, col, w, h, init, out, n_rows, c, s);
-      break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return spmm(row_ptr, col, w, h, init, out, n_rows, 1, c, 0, device,
+              stream);
 }
 
 // K2 on `stream`: G = `groups` planes w_g (groups x nnz, CSR order) over
@@ -154,23 +312,6 @@ extern "C" int ppnp_grouped_spmm_csr(const int* row_ptr, const int* col,
                                      const float* init, float* out,
                                      int n_rows, int groups, int cg, int nnz,
                                      int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int c = groups * cg;
-  switch (ppnp::threads_per_row(c)) {
-    case 8:
-      launch_grouped<8>(row_ptr, col, w_g, h, init, out, n_rows, cg, c, nnz,
-                        s);
-      break;
-    case 16:
-      launch_grouped<16>(row_ptr, col, w_g, h, init, out, n_rows, cg, c,
-                         nnz, s);
-      break;
-    default:
-      launch_grouped<32>(row_ptr, col, w_g, h, init, out, n_rows, cg, c,
-                         nnz, s);
-      break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return spmm(row_ptr, col, w_g, h, init, out, n_rows, groups, cg, nnz,
+              device, stream);
 }

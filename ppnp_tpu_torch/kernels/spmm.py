@@ -18,12 +18,20 @@ as ``spmm_csr_bwd``.
 K2 (``spmm_csr_grouped``, the port of ``_spmm_kernel_grouped``) is the
 seed-batched form: G weight planes over ONE pattern, H stacked along its
 lanes with group g in columns [g·cg, (g+1)·cg), so column block g of the
-output is ``A_{w_g} @ H_g (+ init_g)``. The kernel is the second one in
-``csrc/spmm.cu``; each output column is bit-equal to a K1 launch on that
-group's slice with that group's plane. ``spmm_grad_grouped`` (the
+output is ``A_{w_g} @ H_g (+ init_g)``. ``spmm_grad_grouped`` (the
 counterpart of ``make_spmm_grad_grouped``) runs K2 on the CSR of Aᵀ with
 the same G planes in Aᵀ's order for the backward. K2's launches count as
 ``spmm_grouped`` and ``spmm_grouped_bwd``.
+
+One CUDA kernel serves K1 (G = 1) and K2. A group of 8, 16 or 32 lanes
+owns a row and a tile of its columns, keeps register accumulators for
+the columns it owns and walks the row's edges once (edges outer, columns
+inner), with float4 / float2 gathers where the widths allow. The launch
+shape is chosen inside the C entry points from the row count and the
+widths; nothing here selects it. Each output element adds its edges in
+CSR order from ``init`` (or 0) with ``fmaf``, whatever the shape, so
+every launch gives the same bits and each K2 column is bit-equal to a K1
+launch on that group's slice with that group's plane.
 
 ``spmm_csr`` and ``spmm_csr_grouped`` take the plain version only for
 tensors on the CPU. For CUDA tensors they launch the kernel or raise; they

@@ -35,10 +35,22 @@ def dev():
     return torch.device("cuda")
 
 
-def _matrix(n_rows, n_cols, density, seed, hubs=False):
+def _matrix(n_rows, n_cols, density, seed, hubs=False, lengths=None):
     """A random row-stochastic matrix (K steps neither grow nor vanish);
-    with ``hubs``, row 0 is dense and 50 rows in the middle are empty."""
+    with ``hubs``, row 0 is dense and 50 rows in the middle are empty;
+    with ``lengths``, row i has ``lengths[i % len(lengths)]`` entries
+    (``density`` is then unused)."""
     rng = np.random.RandomState(seed)
+    if lengths is not None:
+        counts = np.resize(np.asarray(lengths), n_rows)
+        rows = np.repeat(np.arange(n_rows, dtype=np.int32), counts)
+        cols = np.concatenate(
+            [rng.choice(n_cols, k, replace=False) for k in counts]
+        ).astype(np.int32)
+        vals = rng.rand(rows.size).astype(np.float32)
+        a = sp.csr_matrix((vals, (rows, cols)), shape=(n_rows, n_cols))
+        sums = np.asarray(a.sum(axis=1)).ravel()
+        return sp.diags(1.0 / np.maximum(sums, 1e-12)).astype(np.float32) @ a
     nnz = int(density * n_rows * n_cols)
     rows = rng.randint(0, n_rows, nnz).astype(np.int32)
     cols = rng.randint(0, n_cols, nnz).astype(np.int32)
@@ -56,10 +68,42 @@ def _matrix(n_rows, n_cols, density, seed, hubs=False):
     return sp.diags(1.0 / np.maximum(sums, 1e-12)).astype(np.float32) @ a
 
 
-@pytest.mark.parametrize("c", [1, 8, 15, 16, 33, 64])
-@pytest.mark.parametrize("shape", [(500, 500), (300, 900)])
-def test_spmm_kernel_matches_plain(dev, c, shape):
-    a = _matrix(*shape, 0.02, seed=c, hubs=True)
+# Row lengths around the kernels' 32-edge staging of a row: empty rows,
+# rows of one tile, of one edge more, and of several tiles.
+LENGTHS = (0, 1, 11, 31, 32, 33, 70, 300)
+# Widths: odd ones, ones past a float4 boundary, and ones above the
+# register tile of one warp (6 slots of float4 per lane, 768 columns).
+WIDTHS = [1, 8, 15, 16, 33, 64, 150, 640, 700]
+# (rows, columns, density): square, rectangular (a wide Xᵀ in the
+# backward), and enough rows (2^14 or more) that wide rows are cut into
+# 8-lane column tiles instead of 32-lane ones.
+SHAPES = [(500, 500, 0.02), (300, 900, 0.02), (17000, 2000, 0.002)]
+
+
+def _structure(shape, seed, structure):
+    n_rows, n_cols, density = shape
+    if structure == "lengths":
+        return _matrix(n_rows, n_cols, 0, seed, lengths=LENGTHS)
+    return _matrix(n_rows, n_cols, density, seed, hubs=True)
+
+
+def _twice_equal(fn):
+    """``fn()`` launched twice on the same inputs gives the same bits."""
+    out = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.parametrize("c", WIDTHS)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("structure", ["hubs", "lengths"])
+def test_spmm_kernel_matches_plain(dev, c, shape, structure):
+    """K1 with and without weights and init: within the tolerance of the
+    plain version, one launch counted, and the same bits when launched
+    twice."""
+    a = _structure(shape, c, structure)
     csr = csr_from_scipy(a, device=dev)
     gen = torch.Generator(device=dev).manual_seed(c)
     h = torch.randn(shape[1], c, device=dev, generator=gen)
@@ -67,9 +111,8 @@ def test_spmm_kernel_matches_plain(dev, c, shape):
     w = csr.val * torch.rand(csr.nnz, device=dev, generator=gen)
     for args in ((h,), (h, w), (h, None, init), (h, w, init)):
         before = build.LAUNCHES["spmm_csr"]
-        out = spmm_csr(csr, *args)
-        assert build.LAUNCHES["spmm_csr"] == before + 1
-        torch.cuda.synchronize()
+        out = _twice_equal(lambda: spmm_csr(csr, *args))
+        assert build.LAUNCHES["spmm_csr"] == before + 2
         torch.testing.assert_close(out, spmm_csr_plain(csr, *args), **TOL)
 
 
@@ -104,28 +147,29 @@ def test_wrappers_refuse_mixed_devices(dev):
         appnp_fused(csr, h, alpha=0.1, niter=2)
 
 
-@pytest.mark.parametrize("c", [1, 8, 15, 16, 33, 64])
-@pytest.mark.parametrize("shape", [(500, 500), (300, 900)])
-def test_spmm_backward_matches_plain(dev, c, shape):
+@pytest.mark.parametrize("c", WIDTHS)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("structure", ["hubs", "lengths"])
+def test_spmm_backward_matches_plain(dev, c, shape, structure):
     """K1 backward: A_wᵀ·g on the CSR of the transpose (for (300, 900),
-    a rectangular Xᵀ of 900 rows), with hub and empty rows; through
-    ``spmm_grad`` the launches count as backward ones."""
-    a = _matrix(*shape, 0.02, seed=c, hubs=True)
+    a rectangular Xᵀ of 900 rows), with hub and empty rows, or rows of
+    0 to 300 entries in the forward; through ``spmm_grad`` the launches
+    count as backward ones."""
+    a = _structure(shape, c, structure)
     csr = csr_from_scipy(a, device=dev)
     csr_t = csr_transpose(csr)
     gen = torch.Generator(device=dev).manual_seed(c)
     g = torch.randn(shape[0], c, device=dev, generator=gen)
     w_t = csr_t.val * torch.rand(csr_t.nnz, device=dev, generator=gen)
     before = build.LAUNCHES["spmm_csr_bwd"]
-    out = spmm_csr_bwd(csr_t, g, w_t)
-    assert build.LAUNCHES["spmm_csr_bwd"] == before + 1
-    torch.cuda.synchronize()
+    out = _twice_equal(lambda: spmm_csr_bwd(csr_t, g, w_t))
+    assert build.LAUNCHES["spmm_csr_bwd"] == before + 2
     torch.testing.assert_close(out, spmm_csr_plain(csr_t, g, w_t), **TOL)
     h = torch.randn(shape[1], c, device=dev, generator=gen,
                     requires_grad=True)
     (spmm_grad(csr, csr_t, h) * g).sum().backward()
     torch.testing.assert_close(h.grad, spmm_csr_plain(csr_t, g), **TOL)
-    assert build.LAUNCHES["spmm_csr_bwd"] == before + 2
+    assert build.LAUNCHES["spmm_csr_bwd"] == before + 3
 
 
 @pytest.mark.parametrize("niter", [1, 2, 3, 10])
@@ -204,27 +248,32 @@ def test_dropout_mask_bit_equal_to_the_cpu(dev, shape):
     assert torch.equal(got.cpu(), dropout_mask_plain(key, shape, 179))
 
 
-@pytest.mark.parametrize("groups,cg", [(1, 15), (3, 5), (10, 15), (10, 64)])
+@pytest.mark.parametrize("groups", [1, 3, 10])
+@pytest.mark.parametrize("cg", [5, 15, 64])
 @pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("structure", ["hubs", "lengths"])
+@pytest.mark.parametrize("n_rows", [700, 17000])
 def test_grouped_kernel_bit_equal_to_k1_launches(dev, groups, cg,
-                                                 with_init):
+                                                 with_init, structure,
+                                                 n_rows):
     """K2 over G planes: each column block bit-equal to a K1 launch on
-    that group's slice with that group's plane, and within the tolerance
-    of the plain version; one launch counted."""
+    that group's slice with that group's plane, within the tolerance of
+    the plain version, the same bits when launched twice; one launch
+    counted per call."""
     from ppnp_tpu_torch.kernels.spmm import (spmm_csr_grouped,
                                              spmm_csr_grouped_plain)
-    a = _matrix(700, 500, 0.02, seed=groups * cg, hubs=True)
+    a = _structure((n_rows, 500, 0.02 * 700 / n_rows), groups * cg,
+                   structure)
     csr = csr_from_scipy(a, device=dev)
     gen = torch.Generator(device=dev).manual_seed(cg)
     h = torch.randn(500, groups * cg, device=dev, generator=gen)
-    init = (torch.randn(700, groups * cg, device=dev, generator=gen)
+    init = (torch.randn(n_rows, groups * cg, device=dev, generator=gen)
             if with_init else None)
     planes = csr.val * torch.rand(groups, csr.nnz, device=dev,
                                   generator=gen)
     before = dict(build.LAUNCHES)
-    out = spmm_csr_grouped(csr, h, planes, init)
-    assert build.LAUNCHES["spmm_grouped"] == before["spmm_grouped"] + 1
-    torch.cuda.synchronize()
+    out = _twice_equal(lambda: spmm_csr_grouped(csr, h, planes, init))
+    assert build.LAUNCHES["spmm_grouped"] == before["spmm_grouped"] + 2
     torch.testing.assert_close(
         out, spmm_csr_grouped_plain(csr, h, planes, init), **TOL)
     for g in range(groups):
