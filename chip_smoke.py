@@ -17,6 +17,12 @@ order; any failure exits non-zero and nothing is caught:
    kernel, plain version and the nearest single PyTorch call (CUDA
    events); every kernel also gives the same bits when launched twice
    on the same inputs.
+   K3 is also held bit for bit against K queued K1 launches (forward,
+   shared plane and K planes) and K queued K1-backward launches
+   accumulated in PyTorch (adjoint), and timed beside K = 1, those
+   chains, and operators of the same n with no edges, one edge to itself
+   and one edge to a random row a row; its launch report prints blocks,
+   rows per band, the bands a block waits on and where its clock went.
    K2 (grouped, G = 10 seeds) is held the same way at the propagation
    step (150 lanes, with init) and its backward on Âᵀ, and at the sparse
    fc1 (640 lanes) and its backward on Xᵀ, and bit for bit against G K1
@@ -26,7 +32,8 @@ order; any failure exits non-zero and nothing is caught:
 4. serving: write a checkpoint of random weights from a seeded
    generator, then run ``python -m ppnp_tpu_torch predict`` in process
    through the xla, pallas and fused backends, several requests each;
-   assert the kernels' launch counts and that the backends agree;
+   assert the kernels' launch counts and that the backends agree (the
+   fused and pallas arms' log-probs bit for bit);
 5. training: run ``python -m ppnp_tpu_torch train`` in process on
    ms_academic with sparse X, ~20 epochs on the pallas and fused arms and
    a few on the xla arm; assert the launch counts per epoch, a finite
@@ -46,7 +53,10 @@ order; any failure exits non-zero and nothing is caught:
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
-checkout (the package is imported from the checkout).
+checkout (the package is imported from the checkout). With
+``--kernels-only`` it runs phases 1–3 alone and prints their records
+instead of a result: run it in two checkouts, in turns, to compare their
+kernels on one card.
 """
 
 import contextlib
@@ -74,6 +84,7 @@ AGREE = 0.999          # pallas / fused argmax equal to xla on ≥ this share
 REF_TOL = 1e-4         # xla arm (f32) vs the float64 reference forward
 THREEFRY_OPS = 80      # 32-bit ALU operations of one Threefry-2x32 draw
 SLEEP_CYCLES = 20_000_000   # ~10 ms of GPU clock: covers enqueueing 20 calls
+EXTRA_INNER = 5   # calls per timing of a record's extras (chains of launches)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 ROOT = Path(__file__).resolve().parent
@@ -187,7 +198,8 @@ def record(name, kernel, plain, library, bytes_moved, flops,
                plain_ms=time_ms(plain),
                library_ms=None if library is None else time_ms(library),
                bound_ms=b_ms, bound_by=b_by, call_ms=call_ms(kernel),
-               **{k: time_ms(fn) for k, fn in extra_ms.items()})
+               **{k: time_ms(fn, inner=EXTRA_INNER)
+                  for k, fn in extra_ms.items()})
     print(f"{name}: max_abs_err={err:.3g} "
           f"({'bit-equal' if exact_ref is not None else f'tol rtol=atol={RTOL}'}"
           "; two launches bit-equal) "
@@ -198,7 +210,9 @@ def record(name, kernel, plain, library, bytes_moved, flops,
 
 def kernel_phases(dev):
     """Phase 3: each kernel and mode against its plain version at
-    main-path shapes. Returns the per-kernel records (without launches)."""
+    main-path shapes. Returns the per-kernel records (without launches)
+    and the names of the K3 checks that were not bit-equal to their K1
+    chains."""
     from ppnp_tpu_torch.builders import build_propagator, load_graph
     from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.kernels.fused import appnp_fused, appnp_fused_plain
@@ -209,6 +223,7 @@ def kernel_phases(dev):
                                              spmm_csr_plain)
     from ppnp_tpu_torch.ops import prng
     from ppnp_tpu_torch.ops.dropout import quantized_keep
+    from ppnp_tpu_torch.ops.sparse import CsrMatrix
     from ppnp_tpu_torch.train import prepare_attr_input
 
     cfg = RunConfig(dataset=DATASET, backend="pallas")
@@ -274,16 +289,6 @@ def kernel_phases(dev):
     recs["spmm_csr_bwd"] = dict(bwd, max_abs_err=max(bwd["max_abs_err"],
                                                      bwd_x["max_abs_err"]),
                                 fc1=bwd_x)
-    # K3 forward: K steps in one launch, shared (1-α)Â plane; no single
-    # PyTorch call computes K steps, so there is no library time
-    planes1 = ws[None]
-    recs["appnp_fused"] = record(
-        "K3", lambda: appnp_fused(a, h, alpha=alpha, niter=niter,
-                                  e_w_all=planes1),
-        lambda: appnp_fused_plain(a, h, alpha=alpha, niter=niter,
-                                  e_w_all=planes1),
-        None, (n + 1) * 4 + a.nnz * 8 + 2 * n * c * 4,
-        niter * (2 * a.nnz * c + 2 * n * c))
     # the mask path: K id-keyed planes of Â and Âᵀ in one launch, bit-equal
     # to the int64 Threefry on the CPU
     keys = prng.split(prng.fold_in(prng.PRNGKey(0), 7), niter)
@@ -301,15 +306,79 @@ def kernel_phases(dev):
         2 * niter * a.nnz * THREEFRY_OPS, exact_ref=want)
     planes, planes_t = edge_masks(keys, a, a_t, keep=keep,
                                   scale=1.0 - alpha)
+    # K3 forward: K steps in one launch, shared (1-α)Â plane; no single
+    # PyTorch call computes K steps, so there is no library time. Beside
+    # it: one iteration, the same K steps as K queued K1 launches, K3 on
+    # an edgeless operator of the same n and K (launch, waits and stores
+    # without gathers), and K3 with K per-iteration planes (the train
+    # forward of a fused epoch).
+    planes1 = ws[None]
+    edgeless = CsrMatrix(
+        row_ptr=torch.zeros(n + 1, dtype=torch.int32, device=dev),
+        col=torch.zeros(0, dtype=torch.int32, device=dev),
+        val=torch.zeros(0, dtype=torch.float32, device=dev),
+        n_rows=n, n_cols=n)
+
+    def one_edge(cols):
+        """n rows of one edge each, row i to cols[i], weight 1."""
+        return CsrMatrix(
+            row_ptr=torch.arange(n + 1, dtype=torch.int32, device=dev),
+            col=cols.to(torch.int32).to(dev),
+            val=torch.ones(n, dtype=torch.float32, device=dev),
+            n_rows=n, n_cols=n)
+
+    # one edge a row: to itself (each band waits on itself alone), or to
+    # a random row (each band waits on nearly all): the cost of the waits
+    # with almost nothing to gather
+    diagonal = one_edge(torch.arange(n))
+    scattered = one_edge(torch.from_numpy(rng.permutation(n)))
+
+    def k3(op, planes_, steps=niter):
+        return lambda: appnp_fused(op, h, alpha=alpha, niter=steps,
+                                   e_w_all=planes_)
+
+    def k1_chain(planes_):
+        def run():
+            x = h
+            for k in range(niter):
+                x = spmm_csr(a, x, planes_[k % planes_.shape[0]], init)
+            return x
+        return run
+
+    recs["appnp_fused"] = record(
+        "K3", k3(a, planes1),
+        lambda: appnp_fused_plain(a, h, alpha=alpha, niter=niter,
+                                  e_w_all=planes1),
+        None, (n + 1) * 4 + a.nnz * 8 + 2 * n * c * 4,
+        niter * (2 * a.nnz * c + 2 * n * c),
+        niter1_ms=k3(a, planes1, 1), k1_chain_ms=k1_chain(planes1),
+        edgeless_ms=k3(edgeless, None), diagonal_ms=k3(diagonal, None),
+        scattered_ms=k3(scattered, None), k_planes_ms=k3(a, planes),
+        k1_chain_k_planes_ms=k1_chain(planes))
+    exact = [("K3 forward, shared plane", k3(a, planes1), k1_chain(planes1)),
+             ("K3 forward, K planes", k3(a, planes), k1_chain(planes))]
     # K3 adjoint: the train-mode VJP on Âᵀ with the K planes reversed
     rev = torch.flip(planes_t, dims=(0,))
+
+    def k1_bwd_chain():
+        out, m = alpha * g, g
+        for s in range(niter):
+            m = spmm_csr_bwd(a_t, m, rev[s])
+            out = out + (alpha if s + 1 < niter else 1.0) * m
+        return out
+
+    def adjoint():
+        return appnp_fused(a_t, g, alpha=alpha, niter=niter, e_w_all=rev,
+                           mode="adjoint")
+
     recs["appnp_adjoint"] = record(
-        "K3 adjoint", lambda: appnp_fused(a_t, g, alpha=alpha, niter=niter,
-                                          e_w_all=rev, mode="adjoint"),
+        "K3 adjoint", adjoint,
         lambda: appnp_fused_plain(a_t, g, alpha=alpha, niter=niter,
                                   e_w_all=rev, mode="adjoint"),
         None, (n + 1) * 4 + a_t.nnz * 4 + niter * a_t.nnz * 4
-        + 2 * n * c * 4, niter * (2 * a_t.nnz * c + 2 * n * c))
+        + 2 * n * c * 4, niter * (2 * a_t.nnz * c + 2 * n * c),
+        k1_bwd_chain_ms=k1_bwd_chain)
+    exact.append(("K3 adjoint", adjoint, k1_bwd_chain))
     # dense dropout's keep mask on the hidden layer (n × 64)
     key = prng.fold_in(prng.PRNGKey(0), 8)
     _, thresh = quantized_keep(prop.drop_prob)
@@ -320,8 +389,40 @@ def kernel_phases(dev):
         lambda: (dropout_mask_plain(key, shape, thresh, dev),),
         None, n * hidden, n * hidden // 4 * THREEFRY_OPS,
         exact_ref=(dropout_mask_plain(key, shape, thresh),))
+    # K3 against the same K steps as queued K1 launches, bit for bit:
+    # every element is the same fmaf chain in CSR order
+    failed = []
+    for name, kernel, chain in exact:
+        out, ref = kernel(), chain()
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        print(f"{name}: {'bit-equal' if same else 'NOT bit-equal'} to "
+              f"{niter} queued {'K1-backward' if 'adjoint' in name else 'K1'}"
+              f" launches (max abs diff "
+              f"{float((out - ref).abs().max()):.3g})")
+        if not same:
+            failed.append(name)
     del planes
-    return recs
+    return recs, failed
+
+
+def k3_launch_report(dev):
+    """K3's launch at MS Academic in each mode: blocks, rows per band, the
+    bands a block waits on before an iteration (hi − lo + 1, mean over
+    blocks and max), and the shares of a block's clock cycles spent in its
+    prologue and in its waits."""
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.kernels.fused import launch_shape
+
+    cfg = RunConfig(dataset=DATASET, backend="pallas")
+    graph = load_graph(cfg)
+    prop = build_propagator(cfg, graph, device=dev)
+    c = int(graph.labels.max()) + 1
+    for mode, op in (("forward", prop.csr), ("adjoint", prop.csr_t)):
+        shape = launch_shape(op, c, niter=prop.niter, mode=mode)
+        print(f"K3 {mode} launch: " + ", ".join(
+            f"{k}={v}" for k, v in shape.items()))
 
 
 def grouped_kernel_phase(dev):
@@ -559,6 +660,12 @@ def serving_path(dev):
     for b in ("pallas", "fused"):
         err = compare(f"log-probs {b} vs xla", logp[b], logp["xla"])
         print(f"log-probs {b} vs xla: max_abs_err={err:.3g}")
+    # K3 is bit-equal to K queued K1 launches, so the two kernel arms agree
+    # bit for bit
+    same = torch.equal(logp["fused"], logp["pallas"])
+    print(f"log-probs fused vs pallas: {'bit-equal' if same else 'differ'}")
+    if not same:
+        raise SystemExit("log-probs of the fused and pallas arms differ")
     return launches
 
 
@@ -1068,13 +1175,21 @@ def main() -> int:
             if "registers" in line or "error" in line.lower():
                 print(f"  nvcc {name}: {line.strip()}")
 
-    recs = kernel_phases(dev)
+    recs, not_exact = kernel_phases(dev)
     grouped = grouped_kernel_phase(dev)
     k1_eval = grouped.pop("spmm_csr")
     recs["spmm_csr"].update(k1_eval, max_abs_err=max(
         [recs["spmm_csr"]["max_abs_err"]]
         + [r["max_abs_err"] for r in k1_eval.values()]))
     recs.update(grouped)
+    if not_exact:
+        raise SystemExit(f"not bit-equal to the K1 chain: {not_exact}")
+    if "--kernels-only" in sys.argv[1:]:
+        # phase 3 alone, to compare the kernels of two checkouts on one
+        # card; no result line
+        print(json.dumps({"kernel_records": recs}))
+        return 0
+    k3_launch_report(dev)
     launches = {f"predict {b}": v for b, v in serving_path(dev).items()}
     trained, epoch_ms = training_path(dev)
     launches.update({f"train {b}": v for b, v in trained.items()})

@@ -3,9 +3,8 @@
 // The SpMM kernels compute rows of A_w @ H (+ init) for a CSR matrix A
 // whose edge weights w may be overridden per call. Each output element
 // sums its row's edges one by one in CSR order, so the sum order is fixed:
-// no atomics, the same bits on every run. In fused.cu a group of TPR
-// threads owns one output row and its lanes stride over the feature
-// columns (row_dot below); spmm.cu states its own layout.
+// no atomics, the same bits on every run. spmm.cu and fused.cu state
+// their layouts.
 //
 // The mask kernels draw with threefry2x32, the 20-round Threefry-2x32 of
 // ppnp_tpu/ops/hashrng.py (and of jax.random), on uint32 registers.
@@ -23,11 +22,8 @@ constexpr int kBlock = 256;  // threads per block, a multiple of every TPR
 // packs two rows into a warp instead of idling 17 of its 32 lanes).
 inline int threads_per_row(int c) { return c <= 8 ? 8 : (c <= 16 ? 16 : 32); }
 
-// acc + sum over e in [beg, end) of w[e] * src[col[e] * c + j], in order.
-// kBypassL1 reads src through L2 only (ld.global.cg): the fused kernel's
-// src is written by other blocks earlier in the same launch, and its rows
-// must never come from a stale L1 line or the read-only path.
-template <bool kBypassL1>
+// acc + sum over e in [beg, end) of w[e] * src[col[e] * c + j], in order
+// (src read through the read-only path: it is not written in the launch).
 __device__ __forceinline__ float row_dot(const int* __restrict__ col,
                                          const float* __restrict__ w,
                                          const float* src, int beg, int end,
@@ -35,7 +31,7 @@ __device__ __forceinline__ float row_dot(const int* __restrict__ col,
 #pragma unroll 4
   for (int e = beg; e < end; ++e) {
     const float* p = src + static_cast<size_t>(col[e]) * c + j;
-    const float x = kBypassL1 ? __ldcg(p) : __ldg(p);
+    const float x = __ldg(p);
     acc = fmaf(w[e], x, acc);
   }
   return acc;

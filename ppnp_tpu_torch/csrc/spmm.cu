@@ -54,8 +54,8 @@
 // - Output is written with streaming stores: out is not read again in the
 //   launch, and evicting it first keeps H's rows in L2.
 // - One column per lane (odd widths up to 16, as c = 15) is the per-lane
-//   walk ppnp::row_dot that K3 uses too: there it already is one pass,
-//   and it measured fastest.
+//   walk ppnp::row_dot: there it already is one pass, and it measured
+//   fastest.
 // - Not used: wgmma / tensor cores (an f32 gather at ~2 flops per gathered
 //   float with a bit-exact order has no matrix tile to multiply) and TMA
 //   (Hopper's tile copies cannot gather rows by index).
@@ -120,9 +120,8 @@ spmm_rows_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
     const float* w =
         cg >= c ? w_g : w_g + static_cast<size_t>(j0 / cg) * nnz;
     const float acc = init != nullptr ? init[base + j0] : 0.0f;
-    __stcs(out + base + j0,
-           ppnp::row_dot<false>(col, w, h, row_ptr[row], row_ptr[row + 1], c,
-                                j0, acc));
+    __stcs(out + base + j0, ppnp::row_dot(col, w, h, row_ptr[row],
+                                          row_ptr[row + 1], c, j0, acc));
     return;
   }
 

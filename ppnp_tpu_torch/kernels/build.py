@@ -35,10 +35,10 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ppnp_tpu_torch"
 SOURCES = {"spmm": "spmm.cu", "fused": "fused.cu", "masks": "masks.cu"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U, _L = ctypes.c_uint, ctypes.c_longlong
-# row_ptr, col, e_w_all; n_planes, nnz; h0, out, tmp; n, c; alpha;
-# niter, device; stream
-_FUSED_ARGS = [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 2 + [_F] + [_I] * 2 \
-    + [_P]
+# row_ptr, col, e_w_all; n_planes, nnz; h0, out, tmp; n, c; alpha; niter;
+# sync; sync_words; info; device; stream
+_FUSED_ARGS = [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 2 + [_F] + [_I] \
+    + [_P] + [_I] + [_P] + [_I] + [_P]
 # library name -> {launch function: its argument types}; each returns a
 # CUDA error code
 _ENTRY = {

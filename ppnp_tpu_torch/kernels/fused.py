@@ -2,10 +2,12 @@
 
 The port of ``ppnp_tpu/kernels/fused.py::_fused_kernel``. The kernel is
 hand-written CUDA for Hopper, ``ppnp_tpu_torch/csrc/fused.cu``: one
-cooperative launch with a grid-wide barrier between iterations, H (or the
-adjoint's M) ping-ponging between two device buffers that stay in L2. The
-source states its bound and design. ``appnp_fused_plain`` is K plain K1
-steps, or in adjoint mode K plain steps of the adjoint recursion.
+cooperative launch of persistent blocks, each owning an edge-balanced band
+of rows for all K iterations; a block waits, through per-band ready flags,
+only for the bands its rows gather from, and every iteration writes a
+buffer of its own. The source states its bound and design.
+``appnp_fused_plain`` is K plain K1 steps, or in adjoint mode K plain
+steps of the adjoint recursion.
 
 Operands follow ``appnp_fused``'s contract in the JAX package: ``h0`` in
 the operator's (permuted) row order, ``e_w_all`` one shared plane or
@@ -23,7 +25,7 @@ CUDA tensors it launches the kernel or raises. Forward launches count as
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,9 +33,16 @@ from ppnp_tpu_torch.kernels import build
 from ppnp_tpu_torch.kernels.spmm import spmm_csr_plain
 from ppnp_tpu_torch.ops.sparse import CsrMatrix
 
-__all__ = ["appnp_fused", "appnp_fused_plain", "appnp_fused_grad"]
+__all__ = ["appnp_fused", "appnp_fused_plain", "appnp_fused_grad",
+           "launch_shape"]
 
 MODES = ("forward", "adjoint")
+# int32 words of the launch report per block (fused.cu, kInfo)
+_INFO_WORDS = 8
+# resident blocks per SM on Hopper at most: the sync words' capacity
+_MAX_BLOCKS_PER_SM = 32
+# (device index, stream) -> the kernel's sync words (module doc of fused.cu)
+_SYNC: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _planes(a: CsrMatrix, alpha: float, niter: int,
@@ -105,26 +114,80 @@ def appnp_fused(a: CsrMatrix, h0: torch.Tensor, *, alpha: float,
                                  e_w_all=planes, mode=mode)
     if h0.device.type != "cuda":
         raise ValueError(f"appnp_fused: unsupported device {h0.device}")
+    return _launch(a, h0, planes, alpha, niter, mode == "adjoint")
+
+
+def _sync_words(device: torch.device, stream) -> torch.Tensor:
+    """The zeroed int32 words the kernel's blocks synchronise through (a
+    count of finished blocks, then a flag per block),
+    one buffer per device and stream, made once: each launch leaves them
+    zeroed for the next launch on its stream, so no call pays a memset."""
+    key = (device.index, stream.cuda_stream)
+    words = _SYNC.get(key)
+    if words is None:
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        words = torch.zeros(1 + _MAX_BLOCKS_PER_SM * n_sm,
+                            dtype=torch.int32, device=device)
+        _SYNC[key] = words
+    return words
+
+
+def _launch(a: CsrMatrix, h0: torch.Tensor, planes: torch.Tensor,
+            alpha: float, niter: int, adjoint: bool,
+            info: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One K3 launch on CUDA operands that ``appnp_fused`` has checked;
+    ``info`` (int32, ``_INFO_WORDS`` per block) receives each block's band
+    and where its clock cycles went."""
     n, c = h0.shape
     out = torch.empty((n, c), dtype=torch.float32, device=h0.device)
     if n == 0 or c == 0:
         return out
-    adjoint = mode == "adjoint"
-    # scratch: the forward's second H buffer; the adjoint's two M buffers
-    # (M_K is never stored, so niter <= 2 needs one)
-    n_tmp = (2 if niter > 2 else 1) if adjoint else (1 if niter > 1 else 0)
-    tmp = (torch.empty((n_tmp, n, c), dtype=torch.float32, device=h0.device)
-           if n_tmp else out)
+    # a buffer per iteration but the last (which writes out), its rows
+    # padded to 8 floats (fused.cu, padded())
+    tmp = (torch.empty((niter - 1, n, -(-c // 8) * 8), dtype=torch.float32,
+                       device=h0.device) if niter > 1 else out)
+    stream = torch.cuda.current_stream(h0.device)
+    sync = _sync_words(h0.device, stream)
     lib = build.load_library("fused")
     launch = lib.ppnp_appnp_adjoint if adjoint else lib.ppnp_appnp_fused
     err = launch(
         a.row_ptr.data_ptr(), a.col.data_ptr(), planes.data_ptr(),
         planes.shape[0], a.nnz, h0.data_ptr(), out.data_ptr(),
-        tmp.data_ptr(), n, c, float(alpha), niter, h0.device.index or 0,
-        torch.cuda.current_stream(h0.device).cuda_stream)
+        tmp.data_ptr(), n, c, float(alpha), niter, sync.data_ptr(),
+        sync.numel(), None if info is None else info.data_ptr(),
+        h0.device.index, stream.cuda_stream)
+    mode = "adjoint" if adjoint else "forward"
     build.check_error(lib, err, f"appnp_fused {mode} cooperative launch")
     build.LAUNCHES["appnp_adjoint" if adjoint else "appnp_fused"] += 1
     return out
+
+
+def launch_shape(a: CsrMatrix, c: int, *, niter: int,
+                 mode: str = "forward") -> dict:
+    """The launch K3 makes on the CUDA operator ``a`` at width ``c``:
+    blocks, blocks per SM, rows per band (mean, max), the bands a block
+    waits on before each iteration, ``hi − lo + 1`` (mean over all blocks,
+    max), and the shares of a block's clock cycles spent in its prologue
+    and in its waits (mean over blocks). Launches the kernel once, on
+    zeros."""
+    dev = a.row_ptr.device
+    h0 = torch.zeros((a.n_rows, c), dtype=torch.float32, device=dev)
+    planes = _planes(a, 0.0, niter, None)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    info = torch.full((_INFO_WORDS * _MAX_BLOCKS_PER_SM * n_sm,), -1,
+                      dtype=torch.int32, device=dev)
+    _launch(a, h0, planes, 0.0, niter, mode == "adjoint", info=info)
+    blocks = info.view(-1, _INFO_WORDS).cpu()
+    blocks = blocks[blocks[:, 0] >= 0].double()
+    rows = blocks[:, 1] - blocks[:, 0]
+    waits = (blocks[:, 3] - blocks[:, 2] + 1).clamp(min=0)
+    cycles = blocks[:, 6]
+    return {"blocks": blocks.shape[0], "per_sm": blocks.shape[0] / n_sm,
+            "rows_per_band": (float(rows.mean()), int(rows.max())),
+            "bands_waited": (float(waits.mean()), int(waits.max())),
+            "prologue_share": float((blocks[:, 4] / cycles).mean()),
+            "wait_share": float((blocks[:, 5] / cycles).mean()),
+            "cycles": float(cycles.mean())}
 
 
 class _FusedGrad(torch.autograd.Function):

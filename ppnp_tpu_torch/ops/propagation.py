@@ -13,7 +13,8 @@ package's three backends:
   and α·H⁰ seeding the output; its backward is K1 on the CSR of Âᵀ. In
   train mode each step's weights are ``(1-α)·edge_dropout_by_id(k, Â)``
   and the same mask in Âᵀ's order (``propagation.py:167-186``);
-- ``fused``: K3, all K steps in one launch, its backward K3's adjoint on
+- ``fused``: K3, all K steps in one launch (a band of rows per block,
+  per-band ready flags between iterations), its backward K3's adjoint on
   Âᵀ; in train mode with K planes per layout (``propagation.py:266-282``).
 
 The id-keyed planes of both layouts for all K steps come from one launch

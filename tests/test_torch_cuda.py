@@ -116,23 +116,84 @@ def test_spmm_kernel_matches_plain(dev, c, shape, structure):
         torch.testing.assert_close(out, spmm_csr_plain(csr, *args), **TOL)
 
 
-@pytest.mark.parametrize("niter", [1, 2, 3, 10])
-@pytest.mark.parametrize("per_iteration", [False, True])
-def test_fused_kernel_matches_plain(dev, niter, per_iteration):
-    # 40,000 rows need more blocks than fit on the card at once, so the
-    # grid-stride loop of the cooperative launch is exercised.
-    a = _matrix(40_000, 40_000, 2e-4, seed=niter, hubs=True)
-    csr = csr_from_scipy(a, device=dev)
+def _banded(n, width, seed):
+    """A row-stochastic matrix whose row i gathers from rows within
+    ``width`` of i: each band of K3 waits on few others."""
+    rng = np.random.RandomState(seed)
+    offsets = list(range(-width, width + 1))
+    a = sp.diags([rng.rand(n - abs(o)).astype(np.float32) for o in offsets],
+                 offsets, format="csr", dtype=np.float32)
+    sums = np.asarray(a.sum(axis=1)).ravel()
+    return sp.diags(1.0 / sums).astype(np.float32) @ a
+
+
+# The operators K3 is held on: 40,000 rows (more bands than SMs, several
+# per SM) banded (narrow dependency ranges) or random with a dense hub row
+# and 50 empty rows (wide ranges, empty bands under the hub); rows of 0 to
+# 300 entries; 100 rows, fewer than the blocks launched (empty bands).
+K3_OPERATORS = ["banded", "hubs", "lengths", "small"]
+
+
+def _k3_operator(kind, seed):
+    if kind == "banded":
+        return _banded(40_000, 3, seed)
+    if kind == "hubs":
+        return _matrix(40_000, 40_000, 2e-4, seed, hubs=True)
+    if kind == "lengths":
+        return _matrix(3000, 3000, 0, seed, lengths=LENGTHS)
+    return _matrix(100, 100, 0.05, seed, hubs=True)
+
+
+def _k3_inputs(dev, kind, niter, per_iteration, transpose=False, c=15):
+    """(operator, input of c columns, planes or None), seeded by niter."""
+    csr = csr_from_scipy(_k3_operator(kind, niter), device=dev)
+    if transpose:
+        csr = csr_transpose(csr)
     gen = torch.Generator(device=dev).manual_seed(niter)
-    h0 = torch.randn(a.shape[0], 15, device=dev, generator=gen)
+    x = torch.randn(csr.n_rows, c, device=dev, generator=gen)
     planes = None
     if per_iteration:
         planes = 0.8 * csr.val * torch.rand(niter, csr.nnz, device=dev,
                                             generator=gen)
+    return csr, x, planes
+
+
+def _plane(csr, planes, k, alpha):
+    return (1.0 - alpha) * csr.val if planes is None \
+        else planes[k % planes.shape[0]]
+
+
+def _k1_chain(csr, h0, alpha, niter, planes):
+    """K queued K1 launches: H ← A_k H + α·H⁰."""
+    init, h = alpha * h0, h0
+    for k in range(niter):
+        h = spmm_csr(csr, h, _plane(csr, planes, k, alpha), init)
+    return h
+
+
+def _k1_bwd_chain(csr_t, g, alpha, niter, planes):
+    """K queued K1-backward launches, accumulated in PyTorch:
+    ``out = out + coef·M`` after each."""
+    out, m = alpha * g, g
+    for s in range(niter):
+        m = spmm_csr_bwd(csr_t, m, _plane(csr_t, planes, s, alpha))
+        out = out + (alpha if s + 1 < niter else 1.0) * m
+    return out
+
+
+@pytest.mark.parametrize("operator", K3_OPERATORS)
+@pytest.mark.parametrize("niter", [1, 2, 3, 10])
+@pytest.mark.parametrize("per_iteration", [False, True])
+def test_fused_kernel_matches_plain(dev, niter, per_iteration, operator):
+    """K3 forward: bit-equal to K queued K1 launches and across two
+    launches, within the tolerance of the plain version; one launch
+    counted per call."""
+    csr, h0, planes = _k3_inputs(dev, operator, niter, per_iteration)
     before = build.LAUNCHES["appnp_fused"]
-    out = appnp_fused(csr, h0, alpha=0.2, niter=niter, e_w_all=planes)
-    assert build.LAUNCHES["appnp_fused"] == before + 1
-    torch.cuda.synchronize()
+    out = _twice_equal(lambda: appnp_fused(csr, h0, alpha=0.2, niter=niter,
+                                           e_w_all=planes))
+    assert build.LAUNCHES["appnp_fused"] == before + 2
+    assert torch.equal(out, _k1_chain(csr, h0, 0.2, niter, planes))
     ref = appnp_fused_plain(csr, h0, alpha=0.2, niter=niter, e_w_all=planes)
     torch.testing.assert_close(out, ref, **TOL)
 
@@ -172,26 +233,65 @@ def test_spmm_backward_matches_plain(dev, c, shape, structure):
     assert build.LAUNCHES["spmm_csr_bwd"] == before + 3
 
 
+@pytest.mark.parametrize("operator", K3_OPERATORS)
 @pytest.mark.parametrize("niter", [1, 2, 3, 10])
 @pytest.mark.parametrize("per_iteration", [False, True])
-def test_fused_adjoint_matches_plain(dev, niter, per_iteration):
-    # 40,000 rows: the cooperative grid strides, as in the forward test
-    a = _matrix(40_000, 40_000, 2e-4, seed=niter, hubs=True)
-    csr_t = csr_transpose(csr_from_scipy(a, device=dev))
-    gen = torch.Generator(device=dev).manual_seed(niter)
-    g = torch.randn(a.shape[0], 15, device=dev, generator=gen)
-    planes = None
-    if per_iteration:
-        planes = 0.8 * csr_t.val * torch.rand(niter, csr_t.nnz, device=dev,
-                                              generator=gen)
+def test_fused_adjoint_matches_plain(dev, niter, per_iteration, operator):
+    """K3 adjoint on the transpose: bit-equal to K queued K1-backward
+    launches accumulated in PyTorch and across two launches, within the
+    tolerance of the plain version."""
+    csr_t, g, planes = _k3_inputs(dev, operator, niter, per_iteration,
+                                  transpose=True)
     before = build.LAUNCHES["appnp_adjoint"]
-    out = appnp_fused(csr_t, g, alpha=0.2, niter=niter, e_w_all=planes,
-                      mode="adjoint")
-    assert build.LAUNCHES["appnp_adjoint"] == before + 1
-    torch.cuda.synchronize()
+    out = _twice_equal(lambda: appnp_fused(csr_t, g, alpha=0.2, niter=niter,
+                                           e_w_all=planes, mode="adjoint"))
+    assert build.LAUNCHES["appnp_adjoint"] == before + 2
+    assert torch.equal(out, _k1_bwd_chain(csr_t, g, 0.2, niter, planes))
     ref = appnp_fused_plain(csr_t, g, alpha=0.2, niter=niter,
                             e_w_all=planes, mode="adjoint")
     torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("mode", ["forward", "adjoint"])
+def test_fused_kernel_back_to_back(dev, mode):
+    """200 launches queued on one stream, no synchronisation between
+    them: each leaves the sync words zeroed for the next, so every output
+    is bit-equal to the first."""
+    csr, x, planes = _k3_inputs(dev, "hubs", 10, mode == "adjoint",
+                                transpose=mode == "adjoint")
+    torch.cuda.synchronize()
+    outs = [appnp_fused(csr, x, alpha=0.2, niter=10, e_w_all=planes,
+                        mode=mode) for _ in range(200)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+@pytest.mark.parametrize("c", [1, 8, 33, 70])
+@pytest.mark.parametrize("mode", ["forward", "adjoint"])
+def test_fused_kernel_widths(dev, c, mode):
+    """Widths other than 15, one pass over a row's edges or several:
+    bit-equal to the K1 (or K1-backward) chain."""
+    csr, x, planes = _k3_inputs(dev, "lengths", 3, True,
+                                transpose=mode == "adjoint", c=c)
+    out = appnp_fused(csr, x, alpha=0.2, niter=3, e_w_all=planes, mode=mode)
+    chain = _k1_chain if mode == "forward" else _k1_bwd_chain
+    assert torch.equal(out, chain(csr, x, 0.2, 3, planes))
+
+
+@pytest.mark.parametrize("operator", K3_OPERATORS)
+def test_fused_launch_report(dev, operator):
+    """The same number of blocks on every SM; the bands cover the rows
+    once; a block waits on at most every band."""
+    from ppnp_tpu_torch.kernels import fused
+    csr, _, _ = _k3_inputs(dev, operator, 10, False)
+    shape = fused.launch_shape(csr, 15, niter=10)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = shape["blocks"]
+    assert blocks % n_sm == 0
+    assert round(shape["rows_per_band"][0] * blocks) == csr.n_rows
+    assert 1 <= shape["bands_waited"][1] <= blocks
+    assert 0 < shape["wait_share"] < 1 and 0 < shape["prologue_share"] < 1
 
 
 @pytest.mark.parametrize("niter", [1, 4])
