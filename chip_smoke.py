@@ -13,7 +13,14 @@ order; any failure exits non-zero and nothing is caught:
    rtol = atol = 1e-5 (only the f32 summation order differs): K1 forward
    (propagation step, sparse fc1), K1 backward (Âᵀ, c = 15; Xᵀ·dH,
    c = 64), K3 forward and adjoint (K reversed masked planes); the mask
-   kernels bit-equal to their plain int64 Threefry run on the CPU. Time
+   kernels bit-equal to their plain int64 Threefry run on the CPU at
+   every shape the main path draws (edge masks of Â + Âᵀ at K and G·K
+   planes and of X + Xᵀ at 1 and G, each beside the kernel's one-pass
+   scatter form; dense masks of n × 64 for 1 and G keys, beside G
+   single-key launches, and the xla step masks for K and G·K keys), after
+   checking Âᵀ's position map (val_t == val[fwd_pos], ids too); the
+   integer instructions of the built mask kernels counted in the SASS.
+   Time
    kernel, plain version and the nearest single PyTorch call (CUDA
    events); every kernel also gives the same bits when launched twice
    on the same inputs.
@@ -82,11 +89,18 @@ RTOL = ATOL = 1e-5     # kernel vs plain version: f32 summation order only
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5   # one epoch, card vs CPU: weight grads
 AGREE = 0.999          # pallas / fused argmax equal to xla on ≥ this share
 REF_TOL = 1e-4         # xla arm (f32) vs the float64 reference forward
-THREEFRY_OPS = 80      # 32-bit ALU operations of one Threefry-2x32 draw
+# 32-bit integer instructions of one Threefry-2x32 draw using both words
+# (dense masks) and the first word alone (edge masks), as ``sass_int_ops``
+# counts them in the SASS nvcc builds for sm_90a
+THREEFRY_OPS, THREEFRY_X_OPS = 67, 63
 SLEEP_CYCLES = 20_000_000   # ~10 ms of GPU clock: covers enqueueing 20 calls
+SLOW_MS = 100.0        # calls slower than this are timed alone (time_ms)
 EXTRA_INNER = 5   # calls per timing of a record's extras (chains of launches)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+# 32-bit integer add, logic and shift: 132 SMs x 64 INT32 lanes x 1.98 GHz
+# (the SXM part's boost clock), one operation a lane a clock
+INT32_OPS = 16.7e12
 ROOT = Path(__file__).resolve().parent
 
 
@@ -103,10 +117,15 @@ def time_ms(fn, inner: int = 20, reps: int = 11, warmup: int = 3) -> float:
     calls queued behind a sleep kernel, so that the host has enqueued
     them before the first one starts and its launch overhead is hidden;
     median over ``reps``. A call that waits for the host (the plain
-    versions do) is timed with that wait."""
+    versions do) is timed with that wait. A call slower than SLOW_MS
+    (the plain versions at the largest mask shapes) is timed alone, 3
+    times: queueing hides nothing there, and 11 x 20 of it would keep the
+    card busy for minutes and heat it before the next kernel is timed."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if call_ms(fn, reps=1, warmup=0) > SLOW_MS:
+        inner, reps = 1, 3
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -140,10 +159,12 @@ def call_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: float, flops: float):
-    """(least ms on the card, what bounds it)."""
+def bound(bytes_moved: float, flops: float, int_ops: float = 0.0):
+    """(least ms on the card, what bounds it): the larger of the bytes at
+    the HBM rate and the f32 and 32-bit integer operations at their
+    peaks (separate pipes, so the larger of the two)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = max(flops / F32_FLOPS, int_ops / INT32_OPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -172,11 +193,12 @@ def csr_tensor(a, values):
 
 
 def record(name, kernel, plain, library, bytes_moved, flops,
-           exact_ref=None, **extra_ms):
+           exact_ref=None, int_ops=0.0, **extra_ms):
     """Compare (bit-equal to ``exact_ref`` where one is given, else within
     the tolerance of the plain version), check that a second launch gives
     the same bits, and time kernel, plain version, library call and each
-    of ``extra_ms`` (name: function)."""
+    of ``extra_ms`` (name: function). ``flops`` and ``int_ops`` are the
+    f32 and 32-bit integer operations of the bound."""
     out = kernel()
     again = kernel()
     torch.cuda.synchronize()
@@ -193,7 +215,7 @@ def record(name, kernel, plain, library, bytes_moved, flops,
         err = 0.0
     else:
         err = compare(name, out, plain())
-    b_ms, b_by = bound(bytes_moved, flops)
+    b_ms, b_by = bound(bytes_moved, flops, int_ops)
     rec = dict(max_abs_err=err, ms=time_ms(kernel),
                plain_ms=time_ms(plain),
                library_ms=None if library is None else time_ms(library),
@@ -216,13 +238,10 @@ def kernel_phases(dev):
     from ppnp_tpu_torch.builders import build_propagator, load_graph
     from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.kernels.fused import appnp_fused, appnp_fused_plain
-    from ppnp_tpu_torch.kernels.masks import (dropout_mask,
-                                              dropout_mask_plain,
-                                              edge_masks, edge_masks_plain)
+    from ppnp_tpu_torch.kernels.masks import edge_masks
     from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_bwd,
                                              spmm_csr_plain)
     from ppnp_tpu_torch.ops import prng
-    from ppnp_tpu_torch.ops.dropout import quantized_keep
     from ppnp_tpu_torch.ops.sparse import CsrMatrix
     from ppnp_tpu_torch.train import prepare_attr_input
 
@@ -289,21 +308,22 @@ def kernel_phases(dev):
     recs["spmm_csr_bwd"] = dict(bwd, max_abs_err=max(bwd["max_abs_err"],
                                                      bwd_x["max_abs_err"]),
                                 fc1=bwd_x)
-    # the mask path: K id-keyed planes of Â and Âᵀ in one launch, bit-equal
-    # to the int64 Threefry on the CPU
-    keys = prng.split(prng.fold_in(prng.PRNGKey(0), 7), niter)
+    # what the edge kernel's second pass relies on: Âᵀ's entry j is Â's
+    # entry fwd_pos[j], with the same value and edge id
+    pos = a_t.fwd_pos.long()
+    if not (torch.equal(a_t.val, a.val[pos])
+            and torch.equal(a_t.edge_ids(), a.edge_ids()[pos])):
+        raise SystemExit("fwd_pos: Âᵀ's entries are not Â's edges")
+    print(f"fwd_pos of Âᵀ: val_t == val[fwd_pos] and ids_t == "
+          f"ids[fwd_pos] on all {a.nnz} entries")
+    # the serial epoch's K planes of Â and Âᵀ, recorded right before K3 as
+    # in earlier runs: K3's time depends on what the card ran just before
+    # it (PERF.md), so its context stays the same
     keep = 1.0 - prop.drop_prob
-    cpu = torch.device("cpu")
-    a_cpu, a_t_cpu = a.to(cpu), a_t.to(cpu)
-    want = edge_masks_plain(keys, a_cpu, a_t_cpu, keep=keep,
-                            scale=1.0 - alpha)
-    recs["edge_masks"] = record(
-        "edge masks (Â and Âᵀ, K planes)",
-        lambda: edge_masks(keys, a, a_t, keep=keep, scale=1.0 - alpha),
-        lambda: edge_masks_plain(keys, a, a_t, keep=keep,
-                                 scale=1.0 - alpha),
-        None, 2 * ((n + 1) * 4 + a.nnz * 8) + 2 * niter * a.nnz * 4,
-        2 * niter * a.nnz * THREEFRY_OPS, exact_ref=want)
+    edge_serial = edge_mask_record(
+        f"edge masks (Â and Âᵀ, K={niter} planes)", a, a_t, niter, keep,
+        1.0 - alpha, 7)
+    keys = prng.split(prng.fold_in(prng.PRNGKey(0), 7), niter)
     planes, planes_t = edge_masks(keys, a, a_t, keep=keep,
                                   scale=1.0 - alpha)
     # K3 forward: K steps in one launch, shared (1-α)Â plane; no single
@@ -379,16 +399,6 @@ def kernel_phases(dev):
         + 2 * n * c * 4, niter * (2 * a_t.nnz * c + 2 * n * c),
         k1_bwd_chain_ms=k1_bwd_chain)
     exact.append(("K3 adjoint", adjoint, k1_bwd_chain))
-    # dense dropout's keep mask on the hidden layer (n × 64)
-    key = prng.fold_in(prng.PRNGKey(0), 8)
-    _, thresh = quantized_keep(prop.drop_prob)
-    shape = (n, hidden)
-    recs["dropout_mask"] = record(
-        "dropout mask (n x 64)",
-        lambda: (dropout_mask(key, shape, thresh, dev),),
-        lambda: (dropout_mask_plain(key, shape, thresh, dev),),
-        None, n * hidden, n * hidden // 4 * THREEFRY_OPS,
-        exact_ref=(dropout_mask_plain(key, shape, thresh),))
     # K3 against the same K steps as queued K1 launches, bit for bit:
     # every element is the same fmaf chain in CSR order
     failed = []
@@ -403,7 +413,185 @@ def kernel_phases(dev):
         if not same:
             failed.append(name)
     del planes
+    # the other mask shapes last: their plain versions at G·K planes are
+    # the longest calls timed here
+    recs.update(mask_records(dev, graph, prop, x, x_t, edge_serial))
     return recs, failed
+
+
+def edge_mask_record(name, m, m_t, n_planes, keep, scale, seed):
+    """Edge masks of ``m`` and ``m_t`` (its transpose) at ``n_planes``
+    planes, bit-equal to the plain version on the CPU and to a second
+    launch; beside it the kernel's one-pass scatter form, bit-equal too,
+    timed as ``scatter_ms``, and ``m`` alone (the first pass: no barrier,
+    no second pass), ``one_layout_ms``."""
+    from ppnp_tpu_torch.kernels.masks import (_edge_masks_launch,
+                                              edge_masks, edge_masks_plain)
+    from ppnp_tpu_torch.ops import prng
+
+    cpu = torch.device("cpu")
+    keys = prng.split(prng.fold_in(prng.PRNGKey(0), seed), n_planes)
+    want = edge_masks_plain(keys, m.to(cpu), m_t.to(cpu), keep=keep,
+                            scale=scale)
+    inverse = torch.empty_like(m_t.fwd_pos)
+    inverse[m_t.fwd_pos.long()] = torch.arange(
+        m.nnz, dtype=torch.int32, device=m.device)
+
+    def scatter():
+        return _edge_masks_launch(keys, m, m_t, keep=keep, scale=scale,
+                                  scatter_pos=inverse)
+    got = scatter()
+    torch.cuda.synchronize()
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise SystemExit(f"{name}: the one-pass scatter form is not "
+                         "bit-equal to the plain version")
+    rec = record(name,
+                 lambda: edge_masks(keys, m, m_t, keep=keep, scale=scale),
+                 lambda: edge_masks_plain(keys, m, m_t, keep=keep,
+                                          scale=scale), None,
+                 5 * m.nnz * 4 + 2 * n_planes * m.nnz * 4, 0,
+                 exact_ref=want, int_ops=n_planes * m.nnz * THREEFRY_X_OPS)
+    rec["scatter_ms"] = time_ms(scatter)
+    rec["one_layout_ms"] = time_ms(
+        lambda: edge_masks(keys, m, keep=keep, scale=scale))
+    print(f"{name}: one-pass scatter form {rec['scatter_ms']} ms "
+          f"(bit-equal) against {rec['ms']} ms")
+    return rec
+
+
+def mask_records(dev, graph, prop, x, x_t, edge_serial):
+    """The mask kernels at every shape the main path launches them, each
+    bit-equal to its plain version run on the CPU and to a second launch.
+    Edge masks (``edge_mask_record``): Â + Âᵀ at K planes (the serial
+    epoch's, ``edge_serial``, recorded before K3) and G·K (batched), X +
+    Xᵀ at 1 plane (the fc1 draw) and G. Dense masks: the hidden layer
+    (n × 64) for 1 key and for G keys (beside it, G single-key
+    launches), and the xla arm's step masks over the EdgeList's slots for
+    K keys (serial) and G·K (batched). Returns the records of
+    ``edge_masks`` and ``dropout_mask``, headed by the serial epoch's
+    shapes (Â + Âᵀ at K planes; n × 64, one key)."""
+    from ppnp_tpu_torch.builders import build_propagator
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.kernels.masks import (dropout_mask, dropout_masks,
+                                              dropout_masks_plain)
+    from ppnp_tpu_torch.ops import prng
+    from ppnp_tpu_torch.ops.dropout import quantized_keep
+    from ppnp_tpu_torch.reproduce import DEFAULT_SEEDS
+
+    a, a_t, alpha, niter = prop.csr, prop.csr_t, prop.alpha, prop.niter
+    groups, keep = len(DEFAULT_SEEDS), 1.0 - prop.drop_prob
+    edge = dict(edge_serial, batched=edge_mask_record(
+        f"edge masks (Â and Âᵀ, G·K={groups * niter} planes)", a, a_t,
+        groups * niter, keep, 1.0 - alpha, 17),
+        fc1=edge_mask_record("edge masks (X and Xᵀ, 1 plane)", x, x_t, 1,
+                             keep, 1.0, 27),
+        fc1_batched=edge_mask_record(
+            f"edge masks (X and Xᵀ, G={groups} planes)", x, x_t, groups,
+            keep, 1.0, 37))
+    _, thresh = quantized_keep(prop.drop_prob)
+    n, hidden = a.n_rows, 64
+
+    def dense_rec(name, shape, n_keys, seed, **extra):
+        keys = prng.split(prng.fold_in(prng.PRNGKey(0), seed), n_keys)
+        words = int(np.prod(shape[:-1])) * -(-shape[-1] // 4)
+        return record(
+            name, lambda: (dropout_masks(keys, shape, thresh, dev),),
+            lambda: (dropout_masks_plain(keys, shape, thresh, dev),), None,
+            n_keys * int(np.prod(shape)), 0,
+            exact_ref=(dropout_masks_plain(keys, shape, thresh),),
+            int_ops=n_keys * words * THREEFRY_OPS,
+            **{k: fn(keys) for k, fn in extra.items()})
+
+    # the hidden layer's mask of one epoch, one key through dropout_mask
+    key = prng.fold_in(prng.PRNGKey(0), 8)
+    shape = (n, hidden)
+    dense = record(
+        "dropout mask (n x 64, 1 key)",
+        lambda: (dropout_mask(key, shape, thresh, dev),),
+        lambda: (dropout_masks_plain([key], shape, thresh, dev)[0],), None,
+        n * hidden, 0, exact_ref=(dropout_masks_plain([key], shape,
+                                                      thresh)[0],),
+        int_ops=n * hidden // 4 * THREEFRY_OPS)
+    w_pad = build_propagator(RunConfig(dataset=DATASET, backend="xla"),
+                             graph, device=dev).edges.w.shape
+    dense.update(
+        batched=dense_rec(
+            f"dropout masks (n x 64, G={groups} keys)", shape, groups, 18,
+            single_keys_ms=lambda keys: lambda: [
+                dropout_mask(k, shape, thresh, dev) for k in keys]),
+        xla_steps=dense_rec(f"dropout masks (xla step masks, {w_pad[0]} "
+                            f"slots, K={niter} keys)", w_pad, niter, 28),
+        xla_steps_batched=dense_rec(
+            f"dropout masks (xla step masks, {w_pad[0]} slots, "
+            f"G·K={groups * niter} keys)", w_pad, groups * niter, 38))
+    return {"edge_masks": edge, "dropout_mask": dense}
+
+
+# one Threefry draw, by difference: the same kernel with and without it
+THREEFRY_PROBE = r"""
+#include "common.cuh"
+#define PROBE(name, expr)                                                \
+  extern "C" __global__ void name(const unsigned* k, const unsigned* c,  \
+                                  unsigned* out) {                       \
+    const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;            \
+    const unsigned k0 = k[0], k1 = k[1], k2 = k[2];                      \
+    const unsigned c0 = c[2 * i], c1 = c[2 * i + 1];                     \
+    out[i] = expr;                                                       \
+  }
+PROBE(none, k0 ^ k1 ^ k2 ^ c0 ^ c1)
+PROBE(both_words, ppnp::threefry2x32(k0, k1, k2, c0, c1).x ^
+                      ppnp::threefry2x32(k0, k1, k2, c0, c1).y ^ k0 ^ k1 ^ c0)
+PROBE(first_word, ppnp::threefry2x32(k0, k1, k2, c0, c1).x ^ k0 ^ k1 ^ c0)
+"""
+INT_OPS = ("IADD3", "IMAD", "LOP3", "SHF", "VIADD", "LEA", "ISETP", "SEL",
+           "PRMT", "IABS", "VIMNMX")
+
+
+def sass_int_ops() -> None:
+    """The 32-bit integer instructions of one Threefry draw in the built
+    code: three probe kernels compiled with the kernels' flags (no draw;
+    one draw using both words, as the dense masks do; the first word
+    alone, as the edge masks do), counted by opcode in ``cuobjdump
+    -sass``, the probe without a draw subtracted. IMAD issues on the FMA
+    pipe, the rest on the INT32 lanes (THREEFRY_OPS and THREEFRY_X_OPS
+    are checked by it)."""
+    import re
+    import shutil
+
+    cuda_bin = Path("/usr/local/cuda/bin")
+    tools = [str(cuda_bin / t) if (cuda_bin / t).exists() else shutil.which(t)
+             for t in ("nvcc", "cuobjdump")]
+    if None in tools:
+        print("SASS of one Threefry draw: nvcc or cuobjdump not found, not "
+              "measured")
+        return
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "threefry_probe.cu").write_text(THREEFRY_PROBE)
+    subprocess.run([tools[0], "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-cubin", "-I",
+                    str(ROOT / "ppnp_tpu_torch" / "csrc"), "-o",
+                    str(work / "threefry_probe.cubin"),
+                    str(work / "threefry_probe.cu")], check=True)
+    sass = subprocess.run([tools[1], "-sass",
+                           str(work / "threefry_probe.cubin")], check=True,
+                          capture_output=True, text=True).stdout
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", fn)
+        counts[fn.split("\n", 1)[0].strip()] = {
+            op: ops.count(op) for op in INT_OPS}
+    base = counts["none"]
+    for name in ("both_words", "first_word"):
+        diff = {op: counts[name][op] - base[op] for op in INT_OPS}
+        total = sum(diff.values())
+        print(f"SASS of one Threefry draw ({name.replace('_', ' ')}): "
+              f"{total} integer instructions, {diff['IMAD']} of them IMAD "
+              f"(FMA pipe), {total - diff['IMAD']} on the INT32 lanes; "
+              + ", ".join(f"{op} {v}" for op, v in diff.items() if v)
+              + f" (THREEFRY_OPS, THREEFRY_X_OPS = {THREEFRY_OPS}, "
+              f"{THREEFRY_X_OPS})")
 
 
 def k3_launch_report(dev):
@@ -675,8 +863,8 @@ def launches_per_epoch(backend: str, niter: int) -> dict:
 
     Masks: one edge_masks launch draws X's and Xᵀ's plane, one draws Â's
     and Âᵀ's K planes (pallas, fused); the hidden layer's dropout is one
-    dropout_mask launch, and on the xla arm each of the K steps masks the
-    EdgeList's values with one more.
+    dropout_mask launch, and on the xla arm one more draws the K step
+    masks over the EdgeList's values.
     """
     if backend == "pallas":
         return {"spmm_csr": 1 + niter + 1 + niter,
@@ -686,7 +874,7 @@ def launches_per_epoch(backend: str, niter: int) -> dict:
         return {"spmm_csr": 2, "spmm_csr_bwd": 1, "appnp_fused": 2,
                 "appnp_adjoint": 1, "edge_masks": 2, "dropout_mask": 1}
     return {"spmm_csr": 2, "spmm_csr_bwd": 1, "edge_masks": 1,
-            "dropout_mask": 1 + niter}
+            "dropout_mask": 2}
 
 
 # the final evaluation after training: one eval forward
@@ -946,16 +1134,20 @@ def sweep_launches_per_epoch(backend: str, niter: int, groups: int) -> dict:
     pallas: K2 for the masked fc1 and each of the K steps, forward and
     backward; the eval is K1 on the lane-stacked W₁ and K steps of K1 at
     G·c lanes; one mask launch draws X's G planes, and the G·K planes of
-    Â and Âᵀ take one launch per 64; G dense dropout masks on the hidden
-    layer. xla: the same fc1, the propagation in plain torch ops with G
-    slot-keyed masks per step."""
+    Â and Âᵀ take one launch per 256; the G dense dropout masks of the
+    hidden layer one launch. xla: the same fc1, the propagation in plain
+    torch ops with its G·K slot-keyed step masks in one launch per 256."""
+    def per_256(keys):
+        return -(-keys // 256)   # kernels/masks.py MAX_KEYS_PER_LAUNCH
+
     if backend == "pallas":
         return {"spmm_grouped": niter + 1, "spmm_grouped_bwd": niter + 1,
                 "spmm_csr": niter + 1,
-                "edge_masks": 1 + -(-groups * niter // 64),
-                "dropout_mask": groups}
+                "edge_masks": 1 + per_256(groups * niter),
+                "dropout_mask": per_256(groups)}
     return {"spmm_grouped": 1, "spmm_grouped_bwd": 1, "spmm_csr": 1,
-            "edge_masks": 1, "dropout_mask": groups + groups * niter}
+            "edge_masks": 1,
+            "dropout_mask": per_256(groups) + per_256(groups * niter)}
 
 
 def run_reproduce(dev, args, name: str):
@@ -1174,6 +1366,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "error" in line.lower():
                 print(f"  nvcc {name}: {line.strip()}")
+    sass_int_ops()
 
     recs, not_exact = kernel_phases(dev)
     grouped = grouped_kernel_phase(dev)
@@ -1212,9 +1405,9 @@ def main() -> int:
         "appnp_adjoint": ("cuda", "ppnp_tpu_torch/csrc/fused.cu",
                           "ppnp_tpu/kernels/fused.py:84"),
         "edge_masks": ("cuda", "ppnp_tpu_torch/csrc/masks.cu",
-                       "ppnp_tpu/ops/dropout.py:136"),
+                       "ppnp_tpu/ops/dropout.py:59"),
         "dropout_mask": ("cuda", "ppnp_tpu_torch/csrc/masks.cu",
-                         "ppnp_tpu/ops/dropout.py:99"),
+                         "ppnp_tpu/ops/dropout.py:22"),
     }
     kernels = []
     for name, rec in recs.items():
@@ -1227,6 +1420,9 @@ def main() -> int:
             launches=total,
             launches_by_path={p: launches[p][name] for p in launches},
             **rec))
+    print("mask launches over the run: " + ", ".join(
+        f"{k['name']} {k['launches']}" for k in kernels
+        if k["name"] in ("edge_masks", "dropout_mask")))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,10 +38,12 @@ __device__ __forceinline__ float row_dot(const int* __restrict__ col,
 }
 
 // Threefry-2x32(key = (k0, k1), counter = (c0, c1)): 20 rounds with the
-// key schedule injected every 4 rounds; all arithmetic wraps at 2^32.
+// key schedule (k0, k1, k2 = k0 ^ k1 ^ 0x1BD11BDA, computed once per key
+// by the caller) injected every 4 rounds; all arithmetic wraps at 2^32.
 __device__ __forceinline__ uint2 threefry2x32(unsigned k0, unsigned k1,
-                                              unsigned c0, unsigned c1) {
-  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+                                              unsigned k2, unsigned c0,
+                                              unsigned c1) {
+  const unsigned ks[3] = {k0, k1, k2};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
   unsigned x0 = c0 + ks[0];
   unsigned x1 = c1 + ks[1];

@@ -50,12 +50,12 @@ _ENTRY = {
     "fused": {"ppnp_appnp_fused": _FUSED_ARGS,
               "ppnp_appnp_adjoint": _FUSED_ARGS},
     "masks": {
-        # per layout: row_ptr, col, val, out; n_rows, nnz, transposed;
-        # then span, keys, n_keys, thresh, keep, scale, device, stream
-        "ppnp_edge_masks": ([_P] * 4 + [_I] * 3) * 2
-        + [_L, _P, _I, _U, _F, _F, _I, _P],
-        # k0, k1, n_rows, last, thresh, mask, device, stream
-        "ppnp_dropout_mask": [_U, _U, _L, _I, _U, _P, _I, _P],
+        # rows, col, val, out; nnz, transposed; span; pos, val_t, out_t,
+        # bits; scatter; keys; n_keys; thresh; keep, scale; device; stream
+        "ppnp_edge_masks": [_P] * 4 + [_I] * 2 + [_L] + [_P] * 4
+        + [_I, _P, _I, _U, _F, _F, _I, _P],
+        # keys, n_keys, n_rows, last, thresh, mask, device, stream
+        "ppnp_dropout_masks": [_P, _I, _L, _I, _U, _P, _I, _P],
     },
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -51,7 +51,7 @@ from ppnp_tpu_torch.kernels.spmm import spmm_grad, spmm_grad_grouped
 from ppnp_tpu_torch.metrics import JsonlWriter, accuracy, macro_f1
 from ppnp_tpu_torch.models.appnp import MLP, init_mlp_params
 from ppnp_tpu_torch.ops import prng
-from ppnp_tpu_torch.ops.dropout import dropout
+from ppnp_tpu_torch.ops.dropout import dropout_grouped
 from ppnp_tpu_torch.ops.propagation import (PPRPowerIteration,
                                             propagate_grouped)
 from ppnp_tpu_torch.ops.sparse_input import SparseInput
@@ -99,15 +99,14 @@ def _grouped_mlp(params_g: Sequence[torch.Tensor], x, keys_mlp, *,
             h = spmm_grad(x.csr, x.csr_t, w1s)
         h = h.view(n, groups, -1).permute(1, 0, 2)         # (G, n, h1)
     elif use_drop:
-        h = torch.bmm(torch.stack([dropout(keys[g, 0], x, drop_prob)
-                                   for g in range(groups)]), w1)
+        h = torch.bmm(dropout_grouped(keys[:, 0], x, drop_prob, shared=True),
+                      w1)
     else:
         h = torch.matmul(x, w1)
     for i in range(1, n_layers):
         h = F.relu(h)
         if use_drop:
-            h = torch.stack([dropout(keys[g, i], h[g], drop_prob)
-                             for g in range(groups)])
+            h = dropout_grouped(keys[:, i], h, drop_prob)
         h = torch.bmm(h, params_g[i])
     return h
 

@@ -9,12 +9,16 @@ the CPU).
   ``jax.random.bits(key, lead + (ceil(last/4),))``; byte j of word w is
   element 4w + j of the row. The keep probability is rounded to a
   multiple of 1/256 and survivors are divided by it
-  (``dropout.py:99-125``).
+  (``dropout.py:22-48``).
+- ``dropout_grouped``: G ``dropout`` draws from G keys in one mask call,
+  over one tensor per key or, with ``shared``, one tensor for all: the
+  ``jax.vmap`` of ``dropout`` over keys that ``ppnp_tpu/multiseed.py:141``
+  draws.
 - ``edge_dropout``: ``dropout`` over the value vector of the padded
   ``EdgeList`` (the xla arm: masks keyed by slot).
 - ``edge_dropout_by_id``: keep an edge iff the first Threefry word of
   (key; id_hi, id_lo) is below ``keep·2³²``, survivors ``val / keep``
-  (``dropout.py:136-152``). The same key keeps the same edges in a CSR
+  (``dropout.py:59-75``). The same key keeps the same edges in a CSR
   matrix and in its transpose.
 - ``edge_dropout_by_id_grouped``: G such planes from G keys in one call,
   stacked (G, nnz) in CSR order, K2's weight layout
@@ -24,13 +28,15 @@ the CPU).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ppnp_tpu_torch.kernels.masks import dropout_mask, edge_masks
+from ppnp_tpu_torch.kernels.masks import dropout_masks, edge_masks
 from ppnp_tpu_torch.ops.sparse import CsrMatrix
 
-__all__ = ["dropout", "edge_dropout", "edge_dropout_by_id",
-           "edge_dropout_by_id_grouped", "quantized_keep"]
+__all__ = ["dropout", "dropout_grouped", "edge_dropout",
+           "edge_dropout_by_id", "edge_dropout_by_id_grouped",
+           "quantized_keep"]
 
 
 def quantized_keep(rate: float):
@@ -42,12 +48,24 @@ def quantized_keep(rate: float):
 def dropout(key, x: torch.Tensor, rate: float) -> torch.Tensor:
     """Inverted dropout: zero with prob ``rate``, survivors ``x / keep``
     with keep quantized to 1/256. Differentiable in ``x``."""
-    if rate <= 0.0:
-        return x
+    return dropout_grouped([key], x[None], rate)[0]
+
+
+def dropout_grouped(keys, x: torch.Tensor, rate: float, *,
+                    shared: bool = False) -> torch.Tensor:
+    """G inverted dropouts from ``keys`` (G, 2) in one mask call → (G,
+    *s). ``x`` is (G, *s), one tensor per key, or with ``shared`` (*s),
+    one tensor for every key; plane g equals ``dropout(keys[g], x[g] or
+    x, rate)`` bit for bit. Differentiable in ``x``."""
+    keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
+    shape = tuple(x.shape) if shared else tuple(x.shape[1:])
+    if not shared and x.shape[0] != keys.shape[0]:
+        raise ValueError(f"dropout_grouped: {keys.shape[0]} keys for x of "
+                         f"shape {tuple(x.shape)}")
     keep_q, thresh = quantized_keep(rate)
-    if thresh >= 256:
-        return x
-    mask = dropout_mask(key, x.shape, thresh, x.device)
+    if rate <= 0.0 or thresh >= 256:
+        return x.expand((keys.shape[0],) + shape) if shared else x
+    mask = dropout_masks(keys, shape, thresh, x.device)
     return torch.where(mask, x / keep_q, torch.zeros_like(x))
 
 
@@ -69,7 +87,7 @@ def edge_dropout_by_id(key, a: CsrMatrix, rate: float) -> torch.Tensor:
 def edge_dropout_by_id_grouped(keys, a: CsrMatrix, rate: float
                                ) -> torch.Tensor:
     """G id-keyed edge-dropout planes of ``a`` → (G, nnz), one per key of
-    ``keys`` (G, 2), in ONE mask call (one launch per 64 keys)."""
+    ``keys`` (G, 2), in ONE mask call (one launch per 256 keys)."""
     if rate <= 0.0:
         return a.val[None].expand(len(keys), -1).contiguous()
     planes, _ = edge_masks(keys, a, keep=1.0 - rate)

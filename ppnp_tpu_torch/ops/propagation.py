@@ -8,7 +8,8 @@ package's three backends:
 - ``xla``: plain torch ops over the padded ``EdgeList`` (gather +
   ``index_add_``), the counterpart of ``spmm_edge_list``; in train mode
   ``keys = split(key, K)`` and each step masks the edge values by SLOT
-  with ``edge_dropout`` (``propagation.py:110-118``);
+  as ``edge_dropout`` does (``propagation.py:110-118``), the K step masks
+  drawn in one mask call (``dropout_grouped``);
 - ``pallas``: K1 once per step, with (1-α) folded into the edge weights
   and α·H⁰ seeding the output; its backward is K1 on the CSR of Âᵀ. In
   train mode each step's weights are ``(1-α)·edge_dropout_by_id(k, Â)``
@@ -30,8 +31,9 @@ padding, so unlike the PairChunks path nothing is padded.
 (``propagation.py:305-397``): G seeds' H stacked along the lanes, each
 seed with its own mask stream. Eval mode is the ordinary propagation on
 the stacked H (K1 at G·c lanes); train mode draws all G·K planes in one
-mask call, step-major, and runs K2 once per step on the pallas arm, or G
-slot-keyed masks per step over the ``EdgeList`` on the xla arm.
+mask call, step-major, and runs K2 once per step on the pallas arm; on
+the xla arm the G·K slot-keyed masks over the ``EdgeList`` are one mask
+call too, step-major.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from ppnp_tpu_torch.kernels.fused import appnp_fused_grad
 from ppnp_tpu_torch.kernels.masks import edge_masks
 from ppnp_tpu_torch.kernels.spmm import spmm_grad, spmm_grad_grouped
 from ppnp_tpu_torch.ops import prng
-from ppnp_tpu_torch.ops.dropout import edge_dropout
+from ppnp_tpu_torch.ops.dropout import dropout_grouped
 from ppnp_tpu_torch.ops.sparse import CsrMatrix, EdgeList
 
 __all__ = ["spmm_edge_list", "PPRPowerIteration", "propagate_grouped"]
@@ -114,10 +116,12 @@ class PPRPowerIteration(nn.Module):
         one_minus_alpha = 1.0 - self.alpha
         if self.backend == "xla":
             alpha_h0 = self.alpha * h0
+            # the K step masks over the slots in one mask call
+            ws = (dropout_grouped(keys, self.edges.w, self.drop_prob,
+                                  shared=True) if apply_drop else None)
             h = h0
             for k in range(self.niter):
-                w = (edge_dropout(keys[k], self.edges.w, self.drop_prob)
-                     if apply_drop else None)
+                w = ws[k] if apply_drop else None
                 h = one_minus_alpha * spmm_edge_list(self.edges, h, w) \
                     + alpha_h0
             return h
@@ -180,10 +184,12 @@ def propagate_grouped(prop: PPRPowerIteration, h0: torch.Tensor, keys=None,
     if prop.backend == "xla":
         edges = prop.edges
         alpha_h0 = prop.alpha * h0
+        # the G·K step masks in one mask call, step k's at rows k·G..
+        ws = dropout_grouped(kiter.reshape(-1, 2), edges.w, prop.drop_prob,
+                             shared=True).view(prop.niter, groups, -1)
         h = h0
         for k in range(prop.niter):
-            w = torch.stack([edge_dropout(kg, edges.w, prop.drop_prob)
-                             for kg in kiter[k]])           # (G, nnz_pad)
+            w = ws[k]                                       # (G, nnz_pad)
             gathered = h.index_select(0, edges.src).view(
                 edges.src.shape[0], groups, -1) * w.t()[:, :, None]
             ah = h.new_zeros(h.shape).index_add_(

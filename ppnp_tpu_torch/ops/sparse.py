@@ -23,7 +23,12 @@ n_cols) of the forward matrix (n for Â after RCM, max(n, f) for X). The
 backward's operator is the CSR of the transpose (``csr_transpose``); its
 entry at (r, c) is edge ``c·span + r``, the id of the same edge in the
 forward matrix (``transpose_ids``, ``pairchunks.py:823-831``). Ids are
-computed from (row, col) where they are needed; none is stored.
+computed from (row, col) where they are needed; none is stored. What
+the builders do store for the mask kernel is each entry's row (``rows``,
+so a thread finds its entry's id without a search of ``row_ptr``) and,
+on a transpose, the position map between the two layouts: entry j of Aᵀ
+is entry ``fwd_pos[j]`` of A, the same edge with the same value, so the
+mask kernel draws each edge once and fills Aᵀ's planes through the map.
 """
 
 from __future__ import annotations
@@ -96,6 +101,10 @@ class CsrMatrix:
     square matrix was built under a row/col permutation; callers apply
     them once outside their hot loops. ``span`` and ``transposed`` fix
     the canonical id of each stored entry (module docstring).
+    ``rows`` (set by ``csr_from_scipy`` and ``csr_transpose``) holds the
+    row of each entry; ``fwd_pos``, set by ``csr_transpose``, maps each
+    entry of this transpose to its position in the forward matrix. A
+    hand-built matrix may leave either None.
     """
 
     row_ptr: torch.Tensor   # int32 [n_rows + 1]
@@ -107,6 +116,8 @@ class CsrMatrix:
     iperm: Optional[torch.Tensor] = None  # int32 [n_rows] or None
     span: int = 0             # edge-id span; 0 → max(n_rows, n_cols)
     transposed: bool = False  # entry (r, c) is edge (c, r) of the forward
+    fwd_pos: Optional[torch.Tensor] = None  # int32 [nnz] or None
+    rows: Optional[torch.Tensor] = None     # int32 [nnz] or None
 
     @property
     def id_span(self) -> int:
@@ -133,7 +144,8 @@ class CsrMatrix:
 
         return dataclasses.replace(
             self, row_ptr=move(self.row_ptr), col=move(self.col),
-            val=move(self.val), perm=move(self.perm), iperm=move(self.iperm))
+            val=move(self.val), perm=move(self.perm), iperm=move(self.iperm),
+            fwd_pos=move(self.fwd_pos), rows=move(self.rows))
 
     def edge_ids(self) -> torch.Tensor:
         """The canonical id of every stored entry (int64 [nnz], CSR
@@ -144,14 +156,25 @@ class CsrMatrix:
         return r * self.id_span + c
 
 
+def _rows(indptr: np.ndarray) -> np.ndarray:
+    """The row of every entry of a CSR matrix with row pointers
+    ``indptr``."""
+    return np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
+
+
 def csr_transpose(a: CsrMatrix) -> CsrMatrix:
     """The CSR of Aᵀ on A's device: the operator of the backward pass,
     whose entries carry the ids of A's (same ``span``, flipped
     ``transposed``). A permuted square A keeps its ``perm``/``iperm``:
-    Aᵀ lives in the same packed coordinates."""
+    Aᵀ lives in the same packed coordinates. ``fwd_pos[j]`` is the
+    position in A of Aᵀ's entry j, found by transposing the entries'
+    positions (int64, exact at any nnz) instead of their values; Aᵀ's
+    values are A's gathered through it."""
+    if a.nnz >= 2 ** 31:
+        raise ValueError(f"nnz={a.nnz} exceeds the int32 index range")
     host = sp.csr_matrix(
-        (a.val.cpu().numpy(), a.col.cpu().numpy(), a.row_ptr.cpu().numpy()),
-        shape=(a.n_rows, a.n_cols))
+        (np.arange(a.nnz, dtype=np.int64), a.col.cpu().numpy(),
+         a.row_ptr.cpu().numpy()), shape=(a.n_rows, a.n_cols))
     t = host.T.tocsr()
     t.sort_indices()
 
@@ -159,11 +182,13 @@ def csr_transpose(a: CsrMatrix) -> CsrMatrix:
         return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
             a.device)
 
+    fwd_pos = dev(t.data, np.int32)
     return CsrMatrix(
         row_ptr=dev(t.indptr, np.int32), col=dev(t.indices, np.int32),
-        val=dev(t.data, np.float32), n_rows=a.n_cols, n_cols=a.n_rows,
-        perm=a.perm, iperm=a.iperm, span=a.id_span,
-        transposed=not a.transposed)
+        val=a.val.index_select(0, fwd_pos.long()).contiguous(),
+        n_rows=a.n_cols, n_cols=a.n_rows, perm=a.perm, iperm=a.iperm,
+        span=a.id_span, transposed=not a.transposed, fwd_pos=fwd_pos,
+        rows=dev(_rows(t.indptr), np.int32))
 
 
 def csr_from_scipy(mat: sp.spmatrix, *, device: torch.device,
@@ -198,4 +223,5 @@ def csr_from_scipy(mat: sp.spmatrix, *, device: torch.device,
         val=dev(csr.data, np.float32), n_rows=csr.shape[0],
         n_cols=csr.shape[1],
         perm=None if perm is None else dev(perm, np.int32),
-        iperm=None if iperm is None else dev(iperm, np.int32))
+        iperm=None if iperm is None else dev(iperm, np.int32),
+        rows=dev(_rows(csr.indptr), np.int32))

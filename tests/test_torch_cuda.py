@@ -9,6 +9,8 @@ the f32 sums differs. The mask kernels are held to their plain versions
 run on the CPU bit for bit.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -17,8 +19,10 @@ import torch
 from ppnp_tpu_torch.kernels import build
 from ppnp_tpu_torch.kernels.fused import (appnp_fused, appnp_fused_grad,
                                           appnp_fused_plain)
-from ppnp_tpu_torch.kernels.masks import (dropout_mask, dropout_mask_plain,
-                                          edge_masks, edge_masks_plain)
+from ppnp_tpu_torch.kernels.masks import (_edge_masks_launch, dropout_mask,
+                                          dropout_mask_plain, dropout_masks,
+                                          dropout_masks_plain, edge_masks,
+                                          edge_masks_plain)
 from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_bwd,
                                          spmm_csr_plain, spmm_grad)
 from ppnp_tpu_torch.ops import prng
@@ -317,10 +321,12 @@ def test_fused_grad_on_the_card_matches_the_cpu(dev, niter):
         torch.testing.assert_close(y, x, **TOL)
 
 
-@pytest.mark.parametrize("n_keys", [1, 10, 70])
+@pytest.mark.parametrize("n_keys", [1, 10, 64, 70, 100, 257])
 def test_edge_masks_bit_equal_to_the_cpu(dev, n_keys):
     """Both layouts of a rectangular X (span max(n, f)) in one launch per
-    64 planes, bit-equal to the int64 Threefry on the CPU."""
+    256 planes, each (plane, edge) drawn once, bit-equal to the int64
+    Threefry run on the CPU for each layout; so is the kernel's one-pass
+    scatter form."""
     a = _matrix(700, 1900, 0.01, seed=n_keys, hubs=True)
     cpu = torch.device("cpu")
     x = csr_from_scipy(a, device=cpu)
@@ -329,12 +335,36 @@ def test_edge_masks_bit_equal_to_the_cpu(dev, n_keys):
     want = edge_masks_plain(keys, x, x_t, keep=0.7, scale=0.8)
     before = build.LAUNCHES["edge_masks"]
     got = edge_masks(keys, x.to(dev), x_t.to(dev), keep=0.7, scale=0.8)
-    assert build.LAUNCHES["edge_masks"] == before + -(-n_keys // 64)
+    assert build.LAUNCHES["edge_masks"] == before + -(-n_keys // 256)
     torch.cuda.synchronize()
     for w, g in zip(want, got):
         assert torch.equal(g.cpu(), w)
     kept = float((got[0] != 0).float().mean())
     assert 0.6 < kept < 0.8
+    inverse = torch.empty_like(x_t.fwd_pos)
+    inverse[x_t.fwd_pos.long()] = torch.arange(x.nnz, dtype=torch.int32)
+    scattered = _edge_masks_launch(keys, x.to(dev), x_t.to(dev), keep=0.7,
+                                   scale=0.8, scatter_pos=inverse.to(dev))
+    torch.cuda.synchronize()
+    for w, g in zip(want, scattered):
+        assert torch.equal(g.cpu(), w)
+    alone, none = edge_masks(keys, x_t.to(dev), keep=0.7, scale=0.8)
+    assert none is None and torch.equal(alone.cpu(), want[1])
+
+
+def test_edge_masks_need_the_map_on_the_card(dev):
+    """A transpose without its fwd_pos map, or a matrix without its rows,
+    is refused on the card: the kernel never draws the second layout
+    again, nor searches row_ptr."""
+    x = csr_from_scipy(_matrix(50, 80, 0.1, seed=1), device=dev)
+    x_t = csr_transpose(x)
+    bare = dataclasses.replace(x_t, fwd_pos=None)
+    keys = prng.split(prng.PRNGKey(1), 3)
+    with pytest.raises(ValueError, match="fwd_pos"):
+        edge_masks(keys, x, bare, keep=0.5)
+    with pytest.raises(ValueError, match="rows"):
+        edge_masks(keys, dataclasses.replace(x, rows=None), x_t, keep=0.5)
+    edge_masks(keys, x, x_t, keep=0.5)   # with the map it launches
 
 
 @pytest.mark.parametrize("shape", [(18331, 64), (37, 13), (1001,),
@@ -346,6 +376,23 @@ def test_dropout_mask_bit_equal_to_the_cpu(dev, shape):
     assert build.LAUNCHES["dropout_mask"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), dropout_mask_plain(key, shape, 179))
+
+
+@pytest.mark.parametrize("groups,shape", [
+    (1, (301, 64)), (10, (301, 64)), (1, (40, 6805)), (10, (40, 6805)),
+    (1, (301, 7)), (10, (301, 7)), (300, (20, 7))])
+def test_dropout_masks_bit_equal_to_the_cpu(dev, groups, shape):
+    """G keys in one launch per 256 (rows a multiple of 4 bytes are
+    stored a word at a time), plane g bit-equal to the single-key mask."""
+    keys = prng.split(prng.PRNGKey(groups), groups)
+    before = build.LAUNCHES["dropout_mask"]
+    got = dropout_masks(keys, shape, 128, dev)
+    assert build.LAUNCHES["dropout_mask"] == before + -(-groups // 256)
+    torch.cuda.synchronize()
+    want = dropout_masks_plain(keys, shape, 128)
+    assert torch.equal(got.cpu(), want)
+    for g in (0, groups - 1):
+        assert torch.equal(want[g], dropout_mask_plain(keys[g], shape, 128))
 
 
 @pytest.mark.parametrize("groups", [1, 3, 10])
