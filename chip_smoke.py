@@ -15,15 +15,14 @@ order; any failure exits non-zero and nothing is caught:
    c = 64), K3 forward and adjoint (K reversed masked planes); the mask
    kernels bit-equal to their plain int64 Threefry run on the CPU at
    every shape the main path draws (edge masks of Â + Âᵀ at K and G·K
-   planes and of X + Xᵀ at 1 and G, each beside the kernel's one-pass
-   scatter form; dense masks of n × 64 for 1 and G keys, beside G
-   single-key launches, and the xla step masks for K and G·K keys), after
-   checking Âᵀ's position map (val_t == val[fwd_pos], ids too); the
-   integer instructions of the built mask kernels counted in the SASS.
-   Time
-   kernel, plain version and the nearest single PyTorch call (CUDA
-   events); every kernel also gives the same bits when launched twice
-   on the same inputs.
+   planes and of X + Xᵀ at 1 and G; dense masks of n × 64 for 1 and G
+   keys, beside G single-key launches, and the xla step masks for K and
+   G·K keys), after checking Âᵀ's position map (val_t == val[fwd_pos],
+   ids too); the integer instructions of one Threefry draw, counted by
+   pipe in the SASS of a compiled probe, held to the counts the masks'
+   bounds use. Time kernel, plain version and the nearest single PyTorch
+   call (CUDA events); every kernel also gives the same bits when
+   launched twice on the same inputs.
    K3 is also held bit for bit against K queued K1 launches (forward,
    shared plane and K planes) and K queued K1-backward launches
    accumulated in PyTorch (adjoint), and timed beside K = 1, those
@@ -89,10 +88,12 @@ RTOL = ATOL = 1e-5     # kernel vs plain version: f32 summation order only
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5   # one epoch, card vs CPU: weight grads
 AGREE = 0.999          # pallas / fused argmax equal to xla on ≥ this share
 REF_TOL = 1e-4         # xla arm (f32) vs the float64 reference forward
-# 32-bit integer instructions of one Threefry-2x32 draw using both words
-# (dense masks) and the first word alone (edge masks), as ``sass_int_ops``
-# counts them in the SASS nvcc builds for sm_90a
-THREEFRY_OPS, THREEFRY_X_OPS = 67, 63
+# 32-bit integer instructions of one Threefry-2x32 draw in the SASS nvcc
+# builds for sm_90a, by pipe: (INT32 lanes: IADD3, LOP3, SHF; FMA pipe:
+# IMAD, which nvcc also uses for adds), using both words (dense masks) and
+# the first word alone (edge masks); ``sass_int_ops`` holds the build to
+# them
+DRAW_BOTH, DRAW_FIRST = (50, 17), (47, 16)
 SLEEP_CYCLES = 20_000_000   # ~10 ms of GPU clock: covers enqueueing 20 calls
 SLOW_MS = 100.0        # calls slower than this are timed alone (time_ms)
 EXTRA_INNER = 5   # calls per timing of a record's extras (chains of launches)
@@ -101,6 +102,11 @@ F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 # 32-bit integer add, logic and shift: 132 SMs x 64 INT32 lanes x 1.98 GHz
 # (the SXM part's boost clock), one operation a lane a clock
 INT32_OPS = 16.7e12
+# instruction issue: one warp instruction a sub-partition a clock, 132 x 4
+# x 32 x 1.98 GHz thread-instructions; IMAD runs on the FMA pipe (at most
+# the SM's 128 FP32 lanes, no faster than this), so the integer
+# instructions of both pipes together over this rate also bound
+ISSUE_OPS = 33.4e12
 ROOT = Path(__file__).resolve().parent
 
 
@@ -159,14 +165,23 @@ def call_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: float, flops: float, int_ops: float = 0.0):
-    """(least ms on the card, what bounds it): the larger of the bytes at
-    the HBM rate and the f32 and 32-bit integer operations at their
-    peaks (separate pipes, so the larger of the two)."""
+def bound(bytes_moved: float, flops: float, int_ops=(0, 0)):
+    """(least ms on the card, what bounds it): the largest of the bytes at
+    the HBM rate, the f32 operations at their peak, and the 32-bit integer
+    instructions ``int_ops`` = (on the INT32 lanes, IMAD on the FMA pipe):
+    those of the INT32 lanes at their rate, and both together at the issue
+    rate."""
+    lanes, imad = int_ops
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / F32_FLOPS, int_ops / INT32_OPS) * 1e3
+    t_ops = max(flops / F32_FLOPS, lanes / INT32_OPS,
+                (lanes + imad) / ISSUE_OPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def draw_ops(draws: int, draw) -> tuple:
+    """The integer instructions of ``draws`` Threefry draws, by pipe."""
+    return draws * draw[0], draws * draw[1]
 
 
 def compare(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -193,12 +208,12 @@ def csr_tensor(a, values):
 
 
 def record(name, kernel, plain, library, bytes_moved, flops,
-           exact_ref=None, int_ops=0.0, **extra_ms):
+           exact_ref=None, int_ops=(0, 0), **extra_ms):
     """Compare (bit-equal to ``exact_ref`` where one is given, else within
     the tolerance of the plain version), check that a second launch gives
     the same bits, and time kernel, plain version, library call and each
     of ``extra_ms`` (name: function). ``flops`` and ``int_ops`` are the
-    f32 and 32-bit integer operations of the bound."""
+    f32 operations and 32-bit integer instructions of the bound."""
     out = kernel()
     again = kernel()
     torch.cuda.synchronize()
@@ -422,40 +437,25 @@ def kernel_phases(dev):
 def edge_mask_record(name, m, m_t, n_planes, keep, scale, seed):
     """Edge masks of ``m`` and ``m_t`` (its transpose) at ``n_planes``
     planes, bit-equal to the plain version on the CPU and to a second
-    launch; beside it the kernel's one-pass scatter form, bit-equal too,
-    timed as ``scatter_ms``, and ``m`` alone (the first pass: no barrier,
-    no second pass), ``one_layout_ms``."""
-    from ppnp_tpu_torch.kernels.masks import (_edge_masks_launch,
-                                              edge_masks, edge_masks_plain)
+    launch; beside it ``m`` alone (the first pass: no barrier, no second
+    pass), ``one_layout_ms``. The bound counts one draw per (plane, edge
+    of ``m``)."""
+    from ppnp_tpu_torch.kernels.masks import edge_masks, edge_masks_plain
     from ppnp_tpu_torch.ops import prng
 
     cpu = torch.device("cpu")
     keys = prng.split(prng.fold_in(prng.PRNGKey(0), seed), n_planes)
     want = edge_masks_plain(keys, m.to(cpu), m_t.to(cpu), keep=keep,
                             scale=scale)
-    inverse = torch.empty_like(m_t.fwd_pos)
-    inverse[m_t.fwd_pos.long()] = torch.arange(
-        m.nnz, dtype=torch.int32, device=m.device)
-
-    def scatter():
-        return _edge_masks_launch(keys, m, m_t, keep=keep, scale=scale,
-                                  scatter_pos=inverse)
-    got = scatter()
-    torch.cuda.synchronize()
-    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
-        raise SystemExit(f"{name}: the one-pass scatter form is not "
-                         "bit-equal to the plain version")
     rec = record(name,
                  lambda: edge_masks(keys, m, m_t, keep=keep, scale=scale),
                  lambda: edge_masks_plain(keys, m, m_t, keep=keep,
                                           scale=scale), None,
                  5 * m.nnz * 4 + 2 * n_planes * m.nnz * 4, 0,
-                 exact_ref=want, int_ops=n_planes * m.nnz * THREEFRY_X_OPS)
-    rec["scatter_ms"] = time_ms(scatter)
+                 exact_ref=want,
+                 int_ops=draw_ops(n_planes * m.nnz, DRAW_FIRST))
     rec["one_layout_ms"] = time_ms(
         lambda: edge_masks(keys, m, keep=keep, scale=scale))
-    print(f"{name}: one-pass scatter form {rec['scatter_ms']} ms "
-          f"(bit-equal) against {rec['ms']} ms")
     return rec
 
 
@@ -499,7 +499,7 @@ def mask_records(dev, graph, prop, x, x_t, edge_serial):
             lambda: (dropout_masks_plain(keys, shape, thresh, dev),), None,
             n_keys * int(np.prod(shape)), 0,
             exact_ref=(dropout_masks_plain(keys, shape, thresh),),
-            int_ops=n_keys * words * THREEFRY_OPS,
+            int_ops=draw_ops(n_keys * words, DRAW_BOTH),
             **{k: fn(keys) for k, fn in extra.items()})
 
     # the hidden layer's mask of one epoch, one key through dropout_mask
@@ -511,7 +511,7 @@ def mask_records(dev, graph, prop, x, x_t, edge_serial):
         lambda: (dropout_masks_plain([key], shape, thresh, dev)[0],), None,
         n * hidden, 0, exact_ref=(dropout_masks_plain([key], shape,
                                                       thresh)[0],),
-        int_ops=n * hidden // 4 * THREEFRY_OPS)
+        int_ops=draw_ops(n * hidden // 4, DRAW_BOTH))
     w_pad = build_propagator(RunConfig(dataset=DATASET, backend="xla"),
                              graph, device=dev).edges.w.shape
     dense.update(
@@ -549,31 +549,25 @@ INT_OPS = ("IADD3", "IMAD", "LOP3", "SHF", "VIADD", "LEA", "ISETP", "SEL",
 
 def sass_int_ops() -> None:
     """The 32-bit integer instructions of one Threefry draw in the built
-    code: three probe kernels compiled with the kernels' flags (no draw;
-    one draw using both words, as the dense masks do; the first word
-    alone, as the edge masks do), counted by opcode in ``cuobjdump
-    -sass``, the probe without a draw subtracted. IMAD issues on the FMA
-    pipe, the rest on the INT32 lanes (THREEFRY_OPS and THREEFRY_X_OPS
-    are checked by it)."""
+    code: three probe kernels compiled as the kernels are (no draw; one draw using both words, as the dense masks do; the first
+    word alone, as the edge masks do), counted by opcode in ``cuobjdump
+    -sass``, the probe without a draw subtracted; IMAD issues on the FMA
+    pipe, the rest on the INT32 lanes. Fails unless the counts are
+    DRAW_BOTH and DRAW_FIRST, which the masks' bounds use."""
     import re
-    import shutil
 
-    cuda_bin = Path("/usr/local/cuda/bin")
-    tools = [str(cuda_bin / t) if (cuda_bin / t).exists() else shutil.which(t)
-             for t in ("nvcc", "cuobjdump")]
-    if None in tools:
-        print("SASS of one Threefry draw: nvcc or cuobjdump not found, not "
-              "measured")
-        return
+    from ppnp_tpu_torch.kernels import build
+
+    nvcc = build._nvcc()
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
     (work / "threefry_probe.cu").write_text(THREEFRY_PROBE)
-    subprocess.run([tools[0], "-gencode", "arch=compute_90a,code=sm_90a",
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-cubin", "-I",
                     str(ROOT / "ppnp_tpu_torch" / "csrc"), "-o",
                     str(work / "threefry_probe.cubin"),
                     str(work / "threefry_probe.cu")], check=True)
-    sass = subprocess.run([tools[1], "-sass",
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
                            str(work / "threefry_probe.cubin")], check=True,
                           capture_output=True, text=True).stdout
     counts = {}
@@ -583,15 +577,16 @@ def sass_int_ops() -> None:
         counts[fn.split("\n", 1)[0].strip()] = {
             op: ops.count(op) for op in INT_OPS}
     base = counts["none"]
-    for name in ("both_words", "first_word"):
+    for name, want in (("both_words", DRAW_BOTH), ("first_word", DRAW_FIRST)):
         diff = {op: counts[name][op] - base[op] for op in INT_OPS}
-        total = sum(diff.values())
+        got = (sum(diff.values()) - diff["IMAD"], diff["IMAD"])
         print(f"SASS of one Threefry draw ({name.replace('_', ' ')}): "
-              f"{total} integer instructions, {diff['IMAD']} of them IMAD "
-              f"(FMA pipe), {total - diff['IMAD']} on the INT32 lanes; "
-              + ", ".join(f"{op} {v}" for op, v in diff.items() if v)
-              + f" (THREEFRY_OPS, THREEFRY_X_OPS = {THREEFRY_OPS}, "
-              f"{THREEFRY_X_OPS})")
+              f"{got[0]} integer instructions on the INT32 lanes, {got[1]} "
+              "IMAD (FMA pipe); "
+              + ", ".join(f"{op} {v}" for op, v in diff.items() if v))
+        if got != want:
+            raise SystemExit(f"SASS of one Threefry draw ({name}): {got} "
+                             f"instructions by pipe, the bounds use {want}")
 
 
 def k3_launch_report(dev):

@@ -25,21 +25,22 @@
 //   pass 2, over A^T's entries: the entry's bit words read at fwd_pos[j]
 //     (one scattered read per 32 planes, not one per plane), A^T's weight
 //     or 0 stored coalesced in each plane.
-// With `scatter` the kernel is one pass that stores each weight at A^T's
-// position as well (pos is then the inverse map): one scattered 4-byte
-// write per plane and edge, which L2 takes at well under the draw rate
-// (PERF.md: 2x slower at 10 planes, 6x at 100). It is kept only to be
-// timed beside the two passes (chip_smoke.py).
+// A single pass that scatters each plane's weight to A^T's position
+// instead costs one random 4-byte write per plane and edge, which L2
+// takes well below the draw rate (PERF.md: 2x slower at 10 planes, 6x at
+// 100).
 //
-// Bound on this card: integer operations. A draw is ~70 32-bit integer
-// operations (chip_smoke.py counts them in the SASS); nvcc issues about a
-// quarter of them, the adds, as IMAD.IADD on the FMA pipe, the rest
-// (IADD3, LOP3, SHF) on the 64 INT32 lanes an SM: 132 x 64 x 1.98 GHz =
-// 16.7 T/s. At MS Academic (206,015 edges of A, K = 10) that is 2.06 M
-// draws, ~9 us; the bytes (A's rows, cols and values, A^T's values and
-// fwd_pos in, 2 x K planes out) are ~20 MB, 6 us. Past the draws, a
-// launch pays its fixed start (~3 us), the barrier and the drain of
-// pass 1's stores before it (~2 us), and pass 2's K planes of stores.
+// Bound on this card: the larger of bytes and integer operations. nvcc
+// builds a draw of the first word into 63 32-bit integer instructions
+// (chip_smoke.py counts them in the SASS): 47 on the 64 INT32 lanes an SM
+// (IADD3, LOP3, SHF: 132 x 64 x 1.98 GHz = 16.7 T/s) and 16 adds as
+// IMAD.IADD on the FMA pipe, which runs beside them. At MS Academic
+// (206,015 edges of A) and K = 10 the 2.06 M draws take 5.8 us of INT32
+// lanes and the bytes (A's rows, cols and values, A^T's values and
+// fwd_pos in, 2 x K planes out, ~20 MB) 6.2 us; at K = 100 the draws
+// bind (58 us). Past them, a launch pays its fixed start (~3 us), the
+// barrier and the drain of pass 1's stores before it (~2 us), and pass
+// 2's K planes of stores.
 //
 // Design: block b of B = (SMs x k) owns the units [U b / B, U (b + 1) /
 // B) of U = nnz x (words of 32 planes), so every SM gets the same number
@@ -56,7 +57,8 @@
 // the byte is below `thresh` (keep rounded to 1/256). Plane g (blockIdx.y)
 // draws from key g with i restarting at 0. One thread per word writes its
 // 4 mask bytes, as one 32-bit store when rows are a multiple of 4 bytes.
-// Bound: operations, one draw per word (1.4 us a 18,331 x 64 plane).
+// Bound: operations, one draw of both words per word, 50 instructions on
+// the INT32 lanes (0.88 us a 18,331 x 64 plane).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -81,10 +83,10 @@ struct EdgeArgs {
   int nnz;
   int transposed;
   long long span;
-  const int* pos;      // fwd_pos of A^T, or its inverse when scattering
+  const int* pos;      // fwd_pos of A^T
   const float* val_t;  // A^T's values; null: A alone
   float* out_t;        // n_keys planes of A^T's nnz weights
-  unsigned* bits;      // nnz x n_words keep-bit words (two passes only)
+  unsigned* bits;      // nnz x n_words keep-bit words
   int n_keys;
   int n_words;    // ceil(n_keys / per_word)
   int per_word;   // planes per word: ceil(n_keys / n_words) <= 32
@@ -97,7 +99,6 @@ __device__ __forceinline__ float weight(float val, float keep, float scale) {
   return __fmul_rn(scale, __fdiv_rn(val, keep));
 }
 
-template <bool kScatter>
 __global__ void __launch_bounds__(ppnp::kBlock)
 edge_masks_kernel(EdgeArgs a, const __grid_constant__ Keys keys) {
   const bool two = a.val_t != nullptr;
@@ -117,7 +118,6 @@ edge_masks_kernel(EdgeArgs a, const __grid_constant__ Keys keys) {
     const float wv = weight(__ldg(a.val + e), a.keep, a.scale);
     const int p0 = w * a.per_word;
     const int p1 = min(p0 + a.per_word, a.n_keys);
-    const int et = kScatter && two ? __ldg(a.pos + e) : 0;
     unsigned word = 0;
 #pragma unroll 2
     for (int p = p0; p < p1; ++p) {
@@ -126,15 +126,14 @@ edge_masks_kernel(EdgeArgs a, const __grid_constant__ Keys keys) {
                             .x < a.thresh;
       const float v = kept ? wv : 0.0f;
       a.out[static_cast<size_t>(p) * a.nnz + e] = v;
-      if (kScatter && two) a.out_t[static_cast<size_t>(p) * a.nnz + et] = v;
       word |= static_cast<unsigned>(kept) << (p - p0);
     }
-    if (!kScatter && two) a.bits[static_cast<size_t>(e) * a.n_words + w] = word;
+    if (two) a.bits[static_cast<size_t>(e) * a.n_words + w] = word;
     long long next = static_cast<long long>(e) + ppnp::kBlock;
     for (; next >= a.nnz; next -= a.nnz) ++w;
     e = static_cast<int>(next);
   }
-  if (kScatter || !two) return;
+  if (!two) return;
   cg::this_grid().sync();
   // pass 2: bits were written in this launch, so they are read from L2
   const long long stride = static_cast<long long>(gridDim.x) * ppnp::kBlock;
@@ -191,9 +190,7 @@ dropout_masks_kernel(const __grid_constant__ Keys keys, unsigned plane_words,
 // B = SMs x k blocks, k = the fewest resident blocks per SM that give
 // each thread about one unit, at most the occupancy: every block is
 // resident, as the grid barrier needs.
-template <typename Kernel>
-int launch_edges(Kernel kernel, EdgeArgs a, Keys keys, int device,
-                 cudaStream_t stream) {
+int launch_edges(EdgeArgs a, Keys keys, int device, cudaStream_t stream) {
   int coop = 0, n_sm = 0, per_sm = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
@@ -201,8 +198,8 @@ int launch_edges(Kernel kernel, EdgeArgs a, Keys keys, int device,
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      ppnp::kBlock, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, edge_masks_kernel, ppnp::kBlock, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const long long units = static_cast<long long>(a.nnz) * a.n_words;
@@ -210,8 +207,9 @@ int launch_edges(Kernel kernel, EdgeArgs a, Keys keys, int device,
   const long long k = (units + slots - 1) / slots;
   const int blocks = n_sm * static_cast<int>(k < per_sm ? k : per_sm);
   void* args[] = {&a, &keys};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    blocks, ppnp::kBlock, args, 0, stream);
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(edge_masks_kernel), blocks, ppnp::kBlock,
+      args, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -232,12 +230,11 @@ Keys copy_keys(const unsigned* keys, int n_keys) {
 // launch on `stream`; returns a CUDA error code (0: the launch was
 // accepted). `keys` is a host array of 2 * n_keys words, 1 <= n_keys <=
 // 256. Two layouts: `pos` is A^T's fwd_pos and `bits` scratch of nnz *
-// ceil(n_keys / 32) words; with `scatter`, `pos` is the inverse map (A's
-// entry e is A^T's entry pos[e]) and `bits` is unused. nnz >= 1.
+// ceil(n_keys / 32) words. nnz >= 1.
 extern "C" int ppnp_edge_masks(
     const int* rows, const int* col, const float* val, float* out, int nnz,
     int transposed, long long span, const int* pos, const float* val_t,
-    float* out_t, unsigned* bits, int scatter, const unsigned* keys,
+    float* out_t, unsigned* bits, const unsigned* keys,
     int n_keys, unsigned thresh, float keep, float scale, int device,
     void* stream) {
   if (n_keys < 1 || n_keys > kMaxKeys || nnz < 1) {
@@ -250,11 +247,8 @@ extern "C" int ppnp_edge_masks(
                    transposed, span, pos, val_t, out_t,
                    bits,   n_keys, n_words, (n_keys + n_words - 1) / n_words,
                    thresh, keep,   scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return scatter ? launch_edges(edge_masks_kernel<true>, a,
-                                copy_keys(keys, n_keys), device, st)
-                 : launch_edges(edge_masks_kernel<false>, a,
-                                copy_keys(keys, n_keys), device, st);
+  return launch_edges(a, copy_keys(keys, n_keys), device,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The (n_keys, n_rows, last) keep masks of dense dropout, as bytes 0/1,

@@ -51,9 +51,9 @@ _ENTRY = {
               "ppnp_appnp_adjoint": _FUSED_ARGS},
     "masks": {
         # rows, col, val, out; nnz, transposed; span; pos, val_t, out_t,
-        # bits; scatter; keys; n_keys; thresh; keep, scale; device; stream
-        "ppnp_edge_masks": [_P] * 4 + [_I] * 2 + [_L] + [_P] * 4
-        + [_I, _P, _I, _U, _F, _F, _I, _P],
+        # bits, keys; n_keys; thresh; keep, scale; device; stream
+        "ppnp_edge_masks": [_P] * 4 + [_I] * 2 + [_L] + [_P] * 5
+        + [_I, _U, _F, _F, _I, _P],
         # keys, n_keys, n_rows, last, thresh, mask, device, stream
         "ppnp_dropout_masks": [_P, _I, _L, _I, _U, _P, _I, _P],
     },

@@ -114,12 +114,9 @@ def edge_masks(keys, a: CsrMatrix, a_t: Optional[CsrMatrix] = None, *,
 
 def _edge_masks_launch(keys: np.ndarray, a: CsrMatrix,
                        a_t: Optional[CsrMatrix], *, keep: float,
-                       scale: float, scatter_pos: Optional[torch.Tensor] = None
+                       scale: float
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The launches of ``edge_masks`` on the card, one per 256 keys. With
-    ``scatter_pos`` (A's entry e is Aᵀ's entry ``scatter_pos[e]``) the
-    kernel runs its one-pass form instead, which scatters every plane's
-    weight to Aᵀ: kept to time it against the two passes."""
+    """The launches of ``edge_masks`` on the card, one per 256 keys."""
     dev, nnz = a.device, a.nnz
     for what, t, dtype in (("a.rows", a.rows, torch.int32),
                            ("a.col", a.col, torch.int32),
@@ -130,9 +127,7 @@ def _edge_masks_launch(keys: np.ndarray, a: CsrMatrix,
             raise ValueError("edge_masks: a_t must be the transpose of a")
         _check("a_t.val", a_t.val, torch.float32, nnz, dev)
         # the kernel draws each edge once and fills a_t through the map
-        _check("a_t.fwd_pos" if scatter_pos is None else "scatter_pos",
-               a_t.fwd_pos if scatter_pos is None else scatter_pos,
-               torch.int32, nnz, dev)
+        _check("a_t.fwd_pos", a_t.fwd_pos, torch.int32, nnz, dev)
     k = keys.shape[0]
     out = torch.empty((k, a.nnz), dtype=torch.float32, device=dev)
     out_t = (None if a_t is None
@@ -140,7 +135,7 @@ def _edge_masks_launch(keys: np.ndarray, a: CsrMatrix,
     if a.nnz == 0:
         return out, out_t
     bits = None
-    if a_t is not None and scatter_pos is None:
+    if a_t is not None:
         words = -(-min(k, MAX_KEYS_PER_LAUNCH) // _WORD_PLANES)
         bits = torch.empty(a.nnz * words, dtype=torch.int32, device=dev)
     lib = build.load_library("masks")
@@ -151,15 +146,12 @@ def _edge_masks_launch(keys: np.ndarray, a: CsrMatrix,
         if a_t is None:
             t_args = (None, None, None, None)
         else:
-            pos = a_t.fwd_pos if scatter_pos is None else scatter_pos
-            t_args = (pos.data_ptr(), a_t.val.data_ptr(),
-                      out_t[p0].data_ptr(),
-                      None if bits is None else bits.data_ptr())
+            t_args = (a_t.fwd_pos.data_ptr(), a_t.val.data_ptr(),
+                      out_t[p0].data_ptr(), bits.data_ptr())
         err = lib.ppnp_edge_masks(
             a.rows.data_ptr(), a.col.data_ptr(), a.val.data_ptr(),
             out[p0].data_ptr(), a.nnz, int(a.transposed), a.id_span,
-            *t_args, int(scatter_pos is not None),
-            chunk.ctypes.data, chunk.shape[0], thresh, float(keep),
+            *t_args, chunk.ctypes.data, chunk.shape[0], thresh, float(keep),
             float(scale), dev.index or 0, stream)
         build.check_error(lib, err, "edge_masks launch")
         build.LAUNCHES["edge_masks"] += 1

@@ -19,10 +19,9 @@ import torch
 from ppnp_tpu_torch.kernels import build
 from ppnp_tpu_torch.kernels.fused import (appnp_fused, appnp_fused_grad,
                                           appnp_fused_plain)
-from ppnp_tpu_torch.kernels.masks import (_edge_masks_launch, dropout_mask,
-                                          dropout_mask_plain, dropout_masks,
-                                          dropout_masks_plain, edge_masks,
-                                          edge_masks_plain)
+from ppnp_tpu_torch.kernels.masks import (dropout_mask, dropout_mask_plain,
+                                          dropout_masks, dropout_masks_plain,
+                                          edge_masks, edge_masks_plain)
 from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_bwd,
                                          spmm_csr_plain, spmm_grad)
 from ppnp_tpu_torch.ops import prng
@@ -325,8 +324,8 @@ def test_fused_grad_on_the_card_matches_the_cpu(dev, niter):
 def test_edge_masks_bit_equal_to_the_cpu(dev, n_keys):
     """Both layouts of a rectangular X (span max(n, f)) in one launch per
     256 planes, each (plane, edge) drawn once, bit-equal to the int64
-    Threefry run on the CPU for each layout; so is the kernel's one-pass
-    scatter form."""
+    Threefry run on the CPU for each layout; so is a launch of one
+    layout, the transpose alone."""
     a = _matrix(700, 1900, 0.01, seed=n_keys, hubs=True)
     cpu = torch.device("cpu")
     x = csr_from_scipy(a, device=cpu)
@@ -341,13 +340,6 @@ def test_edge_masks_bit_equal_to_the_cpu(dev, n_keys):
         assert torch.equal(g.cpu(), w)
     kept = float((got[0] != 0).float().mean())
     assert 0.6 < kept < 0.8
-    inverse = torch.empty_like(x_t.fwd_pos)
-    inverse[x_t.fwd_pos.long()] = torch.arange(x.nnz, dtype=torch.int32)
-    scattered = _edge_masks_launch(keys, x.to(dev), x_t.to(dev), keep=0.7,
-                                   scale=0.8, scatter_pos=inverse.to(dev))
-    torch.cuda.synchronize()
-    for w, g in zip(want, scattered):
-        assert torch.equal(g.cpu(), w)
     alone, none = edge_masks(keys, x_t.to(dev), keep=0.7, scale=0.8)
     assert none is None and torch.equal(alone.cpu(), want[1])
 
