@@ -34,7 +34,10 @@ order; any failure exits non-zero and nothing is caught:
    fc1 (640 lanes) and its backward on Xᵀ, and bit for bit against G K1
    launches on the per-group slices; K1 also at the batched sweep's eval
    shapes (the step at G·c = 150 lanes with init and one shared plane,
-   fc1 at G·hidden = 640 lanes);
+   fc1 at G·hidden = 640 lanes); and at the retrieval width c = 64 on
+   Â: K3 (shared plane) held bit-equal to K queued K1 launches before it
+   is timed, and the K1 step, each beside its plain version (K1 also
+   beside ``torch.addmm``);
 4. serving: write a checkpoint of random weights from a seeded
    generator, then run ``python -m ppnp_tpu_torch predict`` in process
    through the xla, pallas and fused backends, several requests each;
@@ -55,8 +58,21 @@ order; any failure exits non-zero and nothing is caught:
 7. exact PPNP: ``reproduce --propagation exact`` on Citeseer (2 seeds),
    then ``calc_ppr_exact`` at the PubMed surrogate's n, timed, with its
    residual checked;
-8. print one ``{"kernels": [...]}`` line, then the card line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+8. retrieval: the hidden table of the pallas-trained checkpoint on the
+   fused, pallas and xla arms (one K3 launch; K K1 launches), fused
+   bit-equal to pallas, xla within 1e-4 of a float64 forward;
+   ``retrieve_topk`` on 1,024 noisy queries against a float64 oracle;
+   ``python -m ppnp_tpu_torch retrieve`` once on the fused arm, its
+   launch counts asserted;
+9. benches: every ported bench of ``ppnp_tpu_torch.benchmarks`` once at
+   small iteration counts (propagation on the three arms at c = 128,
+   K = 100; the c-sweep; serving and retrieval; training and its
+   breakdown on pallas and fused; exact PPNP on PubMed; host ingest),
+   each result printed as a JSON line; fails on an ``"error"`` entry or
+   a wrong result;
+10. print one ``{"kernels": [...]}`` line (launches per path, the
+   ``retrieve <arm>`` and ``bench <name>`` paths included), then the
+   card line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout (the package is imported from the checkout). With
@@ -83,6 +99,9 @@ SWEEP_EPOCHS = {"pallas": 20, "xla": 4}   # batched seed sweep, G = 10
 SERIAL_SEEDS, SERIAL_EPOCHS = 2, 4        # serial sweep beside it
 SWEEP_TOL = 1e-5       # batched vs serial per-seed losses: f32 sum order
 EXACT_EPOCHS = 10      # exact Citeseer sweep
+HIDDEN = 64            # the hidden width: the retrieval table's columns
+RETRIEVE_EPOCHS = 10   # the retrieve CLI's training run
+QUERIES = 1024         # noisy table rows scored in the retrieval phase
 EXACT_RESID = 1e-4     # max |M Π - α I| of the f32 solve at n = 19,717
 RTOL = ATOL = 1e-5     # kernel vs plain version: f32 summation order only
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5   # one epoch, card vs CPU: weight grads
@@ -427,11 +446,64 @@ def kernel_phases(dev):
               f"{float((out - ref).abs().max()):.3g})")
         if not same:
             failed.append(name)
+    for name, extra in embedding_width_records(dev, a, alpha, niter, ws,
+                                               rng).items():
+        recs[name].update(extra, max_abs_err=max(
+            [recs[name]["max_abs_err"]]
+            + [r["max_abs_err"] for r in extra.values()]))
     del planes
     # the other mask shapes last: their plain versions at G·K planes are
     # the longest calls timed here
     recs.update(mask_records(dev, graph, prop, x, x_t, edge_serial))
     return recs, failed
+
+
+def embedding_width_records(dev, a, alpha, niter, ws, rng):
+    """K3 and the K1 step at the retrieval width, c = HIDDEN columns of
+    H on MS Academic's Â with the shared (1-α)Â plane (the hidden table
+    of ``retrieve`` and the serving table build). K3 is held bit-equal to
+    K queued K1 launches before anything is timed; then both are timed
+    beside their plain versions, K1 also beside ``torch.addmm`` on the
+    CSR. Returns {"spmm_csr": {"step_c64": ...}, "appnp_fused": {"c64":
+    ...}} to merge into the c = 15 records."""
+    from ppnp_tpu_torch.kernels.fused import appnp_fused, appnp_fused_plain
+    from ppnp_tpu_torch.kernels.spmm import spmm_csr, spmm_csr_plain
+
+    n, c = a.n_rows, HIDDEN
+    h = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(dev)
+    init = alpha * h
+    planes1 = ws[None]
+
+    def k3():
+        return appnp_fused(a, h, alpha=alpha, niter=niter, e_w_all=planes1)
+
+    def k1_chain():
+        x = h
+        for _ in range(niter):
+            x = spmm_csr(a, x, ws, init)
+        return x
+
+    out, ref = k3(), k1_chain()
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise SystemExit(f"K3 at c = {c}: not bit-equal to {niter} queued "
+                         "K1 launches (max abs diff "
+                         f"{float((out - ref).abs().max()):.3g})")
+    print(f"K3 forward at c = {c}, shared plane: bit-equal to {niter} "
+          "queued K1 launches")
+    a_lib = csr_tensor(a, ws)
+    step = record(f"K1 step (c = {c})", lambda: spmm_csr(a, h, ws, init),
+                  lambda: spmm_csr_plain(a, h, ws, init),
+                  lambda: torch.addmm(init, a_lib, h),
+                  (n + 1) * 4 + a.nnz * 8 + 3 * n * c * 4,
+                  2 * a.nnz * c + n * c)
+    fused = record(f"K3 (c = {c})", k3,
+                   lambda: appnp_fused_plain(a, h, alpha=alpha, niter=niter,
+                                             e_w_all=planes1),
+                   None, (n + 1) * 4 + a.nnz * 8 + 2 * n * c * 4,
+                   niter * (2 * a.nnz * c + 2 * n * c), k1_chain_ms=k1_chain)
+    return {"spmm_csr": {f"step_c{c}": step},
+            "appnp_fused": {f"c{c}": fused}}
 
 
 def edge_mask_record(name, m, m_t, n_planes, keep, scale, seed):
@@ -590,7 +662,8 @@ def sass_int_ops() -> None:
 
 
 def k3_launch_report(dev):
-    """K3's launch at MS Academic in each mode: blocks, rows per band, the
+    """K3's launch at MS Academic in each mode (and the forward at the
+    hidden width): blocks, rows per band, the
     bands a block waits on before an iteration (hi − lo + 1, mean over
     blocks and max), and the shares of a block's clock cycles spent in its
     prologue and in its waits."""
@@ -602,9 +675,11 @@ def k3_launch_report(dev):
     graph = load_graph(cfg)
     prop = build_propagator(cfg, graph, device=dev)
     c = int(graph.labels.max()) + 1
-    for mode, op in (("forward", prop.csr), ("adjoint", prop.csr_t)):
-        shape = launch_shape(op, c, niter=prop.niter, mode=mode)
-        print(f"K3 {mode} launch: " + ", ".join(
+    for mode, op, width in (("forward", prop.csr, c),
+                            ("adjoint", prop.csr_t, c),
+                            ("forward", prop.csr, HIDDEN)):
+        shape = launch_shape(op, width, niter=prop.niter, mode=mode)
+        print(f"K3 {mode} launch at c = {width}: " + ", ".join(
             f"{k}={v}" for k, v in shape.items()))
 
 
@@ -1102,14 +1177,26 @@ def profile_requests(model, x, prop, reps: int = REQUESTS):
 def reference_logp(graph, state, alpha: float, niter: int) -> torch.Tensor:
     """The eval forward in float64 with numpy and scipy alone: L1-normed
     X → fc1 → ReLU → fc2 → K steps of (1-α)ÂH + αH⁰ → log-softmax."""
+    h = reference_table(graph, state, alpha, niter, "logits")
+    h = h - h.max(axis=1, keepdims=True)
+    return torch.from_numpy(h - np.log(np.exp(h).sum(axis=1,
+                                                     keepdims=True)))
+
+
+def reference_table(graph, state, alpha: float, niter: int,
+                    level: str) -> np.ndarray:
+    """K steps of (1-α)ÂH + αH⁰ in float64 with numpy and scipy alone,
+    from H⁰ = ReLU(L1-normed X → fc1) (``level="hidden"``) or its fc2
+    logits (``"logits"``)."""
     import scipy.sparse as sp
     attr = sp.csr_matrix(graph.attr_matrix, dtype=np.float64)
     rows = np.asarray(attr.sum(axis=1)).ravel()
     attr = sp.diags(np.where(rows > 0, 1.0 / np.maximum(rows, 1e-12), 0.0)) \
         @ attr
     w1 = state["layers.0.weight"].double().numpy()
-    w2 = state["layers.1.weight"].double().numpy()
-    h0 = np.maximum(attr @ w1.T, 0.0) @ w2.T
+    h0 = np.maximum(attr @ w1.T, 0.0)
+    if level == "logits":
+        h0 = h0 @ state["layers.1.weight"].double().numpy().T
     adj = sp.csr_matrix(graph.adj_matrix, dtype=np.float64)
     adj = adj + sp.eye(adj.shape[0], format="csr")
     d = sp.diags(1.0 / np.sqrt(np.asarray(adj.sum(axis=1)).ravel()))
@@ -1117,9 +1204,7 @@ def reference_logp(graph, state, alpha: float, niter: int) -> torch.Tensor:
     h = h0
     for _ in range(niter):
         h = (1.0 - alpha) * (a_hat @ h) + alpha * h0
-    h = h - h.max(axis=1, keepdims=True)
-    return torch.from_numpy(h - np.log(np.exp(h).sum(axis=1,
-                                                     keepdims=True)))
+    return h
 
 
 def sweep_launches_per_epoch(backend: str, niter: int, groups: int) -> dict:
@@ -1335,6 +1420,195 @@ def exact_path(dev):
     return {"reproduce exact": got}
 
 
+def retrieval_path(dev):
+    """Retrieval on the pallas-trained checkpoint's best weights: the
+    hidden table (densified X, as the ``retrieve`` CLI builds it) on the
+    fused, pallas and xla arms, each in one call with the launch counts
+    set to 0 just before and read just after (one K3 launch; K K1
+    launches; none); the fused table bit-equal to the pallas one, the
+    xla one within REF_TOL of a float64 forward; ``retrieve_topk`` on
+    QUERIES noisy table rows with its top-1 equal to a float64 numpy
+    oracle on ≥ AGREE of them; then the ``retrieve`` CLI once on the
+    fused arm. Returns launch counts per path."""
+    from ppnp_tpu_torch.__main__ import main as cli_main
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.checkpoint import restore_checkpoint
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.kernels import build
+    from ppnp_tpu_torch.models.appnp import MLP
+    from ppnp_tpu_torch.retrieval import build_embedding_table, retrieve_topk
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    state = restore_checkpoint(str(ROOT / "build" / "chip_smoke"
+                                   / "train_pallas"))
+    weights = state["best_state"]
+    model = MLP.from_state_dict(weights, device=dev)
+    graph = load_graph(RunConfig(dataset=DATASET))
+    n = graph.num_nodes()
+    expected = {"fused": {"appnp_fused": 1}, "pallas": {"spmm_csr": 10},
+                "xla": {}}
+    launches, tables = {}, {}
+    for b in ("fused", "pallas", "xla"):
+        prop = build_propagator(RunConfig(dataset=DATASET, backend=b), graph,
+                                device=dev)
+        x = prepare_attr_input(graph, prop, x_format="dense")
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        tables[b] = build_embedding_table(model, x, prop, level="hidden")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[f"retrieve {b}"] = got = dict(build.LAUNCHES)
+        del x
+        want = {k: expected[b].get(k, 0) for k in got}
+        print(f"hidden table on {b}: {tuple(tables[b].shape)}, {ms:.3f} ms "
+              f"(one call, host clock), launches {got}")
+        if got != want or tables[b].shape != (n, HIDDEN) \
+                or not torch.isfinite(tables[b]).all():
+            raise SystemExit(f"hidden table on {b}: launches {got}, "
+                             f"expected {want}, or a bad table")
+    same = torch.equal(tables["fused"], tables["pallas"])
+    print(f"hidden table fused vs pallas: "
+          f"{'bit-equal' if same else 'differ'}")
+    if not same:
+        raise SystemExit("hidden tables of the fused and pallas arms differ")
+    err = compare("hidden table pallas vs xla", tables["pallas"],
+                  tables["xla"])
+    ref = reference_table(graph, weights, prop.alpha, prop.niter, "hidden")
+    ref_err = float(np.abs(tables["xla"].double().cpu().numpy() - ref).max())
+    print(f"hidden table: pallas vs xla max_abs_err={err:.3g}; xla vs "
+          f"float64 reference max_abs_err={ref_err:.3g} (tol {REF_TOL})")
+    np.testing.assert_allclose(tables["xla"].double().cpu().numpy(), ref,
+                               rtol=REF_TOL, atol=REF_TOL)
+
+    table = tables["fused"]
+    rng = np.random.RandomState(0)
+    src = torch.from_numpy(rng.randint(0, n, QUERIES)).to(dev)
+    q = table[src] + 0.01 * torch.from_numpy(
+        rng.randn(QUERIES, HIDDEN).astype(np.float32)).to(dev)
+    scores, idx = retrieve_topk(q, table, k=10)
+    oracle = (q.double().cpu().numpy()
+              @ table.double().cpu().numpy().T).argmax(axis=1)
+    agree = float((idx[:, 0].cpu().numpy() == oracle).mean())
+    print(f"retrieve_topk: {QUERIES} noisy queries, top-1 equal to the "
+          f"float64 oracle on {agree:.6f} (need {AGREE})")
+    if agree < AGREE or not (scores[:, :-1] >= scores[:, 1:]).all():
+        raise SystemExit(f"retrieve_topk: top-1 agreement {agree} < "
+                         f"{AGREE} or scores not descending")
+
+    buf = io.StringIO()
+    build.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["retrieve", "--dataset", DATASET, "--backend", "fused",
+                       "--x-format", "sparse", "--device", str(dev),
+                       "--max-epochs", str(RETRIEVE_EPOCHS), "--patience",
+                       "100", "--print-interval", "0", "--nqueries", "5"])
+    launches["retrieve cli fused"] = got = dict(build.LAUNCHES)
+    if rc != 0:
+        raise SystemExit(f"retrieve exited {rc}")
+    per = launches_per_epoch("fused", 10)
+    want = {k: per.get(k, 0) * RETRIEVE_EPOCHS
+            + FINAL_EVAL["fused"].get(k, 0) + expected["fused"].get(k, 0)
+            for k in got}
+    lines = [line for line in buf.getvalue().splitlines()
+             if line.startswith("query node")]
+    print(f"retrieve --backend fused ({RETRIEVE_EPOCHS} epochs): "
+          f"launches {got}; " + (lines[0] if lines else "no lines"))
+    if got != want or len(lines) != 5:
+        raise SystemExit(f"retrieve: {len(lines)} query lines, launches "
+                         f"{got}, expected {want}")
+    return launches
+
+
+def _errors(res) -> list:
+    """Paths of every ``"error"`` key in a bench result."""
+    if not isinstance(res, dict):
+        return []
+    return [k for k in res if k == "error"] + [
+        f"{k}.{e}" for k, v in res.items() for e in _errors(v)]
+
+
+def bench_path(dev):
+    """Every ported bench once, on the card, at small iteration counts:
+    propagation on the three arms (c = 128, K = 100, MS Academic), the
+    c-sweep, serving and retrieval on MS Academic, training and its
+    breakdown on pallas and fused, exact PPNP on PubMed, and the host
+    ingest at its default size. Each result is printed as one JSON line;
+    the run fails on any ``"error"`` entry or a result that is not
+    right. Returns launch counts per bench."""
+    from ppnp_tpu_torch import benchmarks as bm
+    from ppnp_tpu_torch.kernels import build
+
+    arms = ("xla", "pallas", "fused")
+    prop_iters = 3
+    runs = [
+        ("propagation", lambda: bm.bench_propagation(
+            dataset=DATASET, c=128, niter=100, iters=prop_iters,
+            backends=arms, device=dev)),
+        ("c_sweep", lambda: bm.bench_c_sweep(
+            dataset=DATASET, niter=100, iters=2, backends=arms, device=dev)),
+        ("serving", lambda: bm.bench_serving(dataset=DATASET, iters=10,
+                                             device=dev)),
+        ("retrieval", lambda: bm.bench_retrieval(dataset=DATASET, iters=5,
+                                                 device=dev)),
+        *[(f"training {b}", lambda b=b: bm.bench_training(
+            dataset=DATASET, backend=b, epochs=20, epoch_chunk=10,
+            device=dev)) for b in ("pallas", "fused")],
+        *[(f"training_breakdown {b}", lambda b=b: bm.bench_training_breakdown(
+            dataset=DATASET, backend=b, iters=5, device=dev))
+          for b in ("pallas", "fused")],
+        ("exact", lambda: bm.bench_exact(dataset="pubmed", iters=5,
+                                         device=dev)),
+        ("ingest", bm.bench_ingest),
+    ]
+    launches, results = {}, {}
+    for name, run in runs:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[f"bench {name}"] = dict(build.LAUNCHES)
+        results[name] = res
+        print(json.dumps({"bench": name, "seconds": secs, "result": res},
+                         default=float))
+        if _errors(res):
+            raise SystemExit(f"bench {name}: error entries {_errors(res)}")
+    # what must hold of the results: every arm timed, each K3 call one
+    # launch and each pallas call K = 100 K1 launches (a warm-up call and
+    # 3 trials of iters calls), the kernels launched where they run
+    calls = 1 + 3 * prop_iters
+    got = launches["bench propagation"]
+    if (got["appnp_fused"], got["spmm_csr"]) != (calls, 100 * calls):
+        raise SystemExit(f"bench propagation: launches {got}, expected "
+                         f"{calls} K3 and {100 * calls} K1")
+    for name, res in results.items():
+        if name in ("propagation", "serving"):
+            for b, v in res["backends"].items():
+                if not all(np.isfinite(x) and x > 0 for x in v.values()):
+                    raise SystemExit(f"bench {name} {b}: {v}")
+    sweep = results["c_sweep"]["sweep"]
+    if sorted(sweep) != [16, 64, 128, 256] or any(
+            set(row) != {*arms, "speedup_vs_xla"} for row in sweep.values()):
+        raise SystemExit(f"bench c_sweep: {sweep}")
+    if results["retrieval"]["oracle_top1_agreement"] < AGREE:
+        raise SystemExit("bench retrieval: top-1 agreement "
+                         f"{results['retrieval']['oracle_top1_agreement']}")
+    if not results["exact"]["residual_max"] <= EXACT_RESID:
+        raise SystemExit(f"bench exact: residual "
+                         f"{results['exact']['residual_max']}")
+    for b in ("pallas", "fused"):
+        res = results[f"training {b}"]
+        if res["epochs"] != 20 or not res["s_per_epoch"] > 0:
+            raise SystemExit(f"bench training {b}: {res}")
+        kern = {"pallas": "spmm_csr", "fused": "appnp_fused"}[b]
+        for path in (f"bench training {b}", f"bench training_breakdown {b}"):
+            if launches[path][kern] == 0:
+                raise SystemExit(f"{path}: no {kern} launch")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1343,6 +1617,7 @@ def main() -> int:
     # the port comes from the checkout this script sits in; without it
     # the import fails here, before anything is printed
     from ppnp_tpu_torch.kernels import build
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     if torch.backends.cuda.matmul.allow_tf32:
@@ -1385,6 +1660,10 @@ def main() -> int:
           + json.dumps(epoch_ms))
     launches.update(seed_sweep_path(dev))
     launches.update(exact_path(dev))
+    launches.update(retrieval_path(dev))
+    t0 = time.perf_counter()
+    launches.update(bench_path(dev))
+    print(f"bench phase: {time.perf_counter() - t0:.2f} s")
 
     meta = {
         "spmm_csr": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",
@@ -1418,6 +1697,8 @@ def main() -> int:
     print("mask launches over the run: " + ", ".join(
         f"{k['name']} {k['launches']}" for k in kernels
         if k["name"] in ("edge_masks", "dropout_mask")))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
+          "included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

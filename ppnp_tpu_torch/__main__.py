@@ -1,20 +1,24 @@
-"""CLI: ``python -m ppnp_tpu_torch {train,predict,reproduce,info} ...``
+"""CLI: ``python -m ppnp_tpu_torch {train,predict,reproduce,retrieve,bench,info} ...``
 
-The training, serving and seed-sweep commands of ``python -m ppnp_tpu``,
-with the same flags plus ``--device`` (default ``cuda``; ``--device cpu``
-runs the plain PyTorch versions of the kernels). ``train`` prints the JSON
-keys of the JAX package's ``train`` (``ppnp_tpu/__main__.py:97-126``) plus
-``device``, and writes the checkpoint ``predict`` serves; ``predict``
-prints the JSON keys of the JAX package's ``predict``, plus ``device``
-and ``request_ms``; ``reproduce`` prints the JAX package's lines and JSON
-(``ppnp_tpu/__main__.py:129-168``) and also takes ``--metrics-out``.
+The training, serving, seed-sweep, retrieval and bench commands of
+``python -m ppnp_tpu``, with the same flags plus ``--device`` (default
+``cuda``; ``--device cpu`` runs the plain PyTorch versions of the
+kernels). ``train`` prints the JSON keys of the JAX package's ``train``
+(``ppnp_tpu/__main__.py:97-126``) plus ``device``, and writes the
+checkpoint ``predict`` serves; ``predict`` prints the JSON keys of the JAX
+package's ``predict``, plus ``device`` and ``request_ms``; ``reproduce``
+prints the JAX package's lines and JSON (``ppnp_tpu/__main__.py:129-168``)
+and also takes ``--metrics-out``; ``retrieve`` prints the JAX package's
+per-query lines (``ppnp_tpu/__main__.py:257-284``); ``bench`` prints the
+result JSON of the chosen bench (``ppnp_tpu_torch/benchmarks.py``), the
+JAX command's flags but ``--layout``.
 
 Flags of the JAX CLI that select what the port does not have yet are
 accepted so the same command lines parse, and raise where they matter
 (``--propagation sharded``, ``--backend blocked``,
-``--x-dtype bfloat16``, ``train --tensorboard`` and ``--profile``);
-``--layout`` and the sharding flags do not change a CSR operator on one
-card.
+``--x-dtype bfloat16``, ``train --tensorboard``, ``--profile``,
+``bench --scaling`` and ``--blocked-scale``); ``--layout`` and the
+sharding flags do not change a CSR operator on one card.
 """
 
 from __future__ import annotations
@@ -239,6 +243,84 @@ def cmd_reproduce(args) -> int:
             metrics.close()
 
 
+def cmd_retrieve(args) -> int:
+    """Train, then print each of the first ``--nqueries`` nodes' top-k
+    neighbours in the propagated embedding table."""
+    from ppnp_tpu_torch.builders import (build_propagator, load_graph,
+                                         train_kwargs)
+    from ppnp_tpu_torch.device import resolve_device
+    from ppnp_tpu_torch.retrieval import build_embedding_table, retrieve_topk
+    from ppnp_tpu_torch.train import prepare_attr_input, train_model
+
+    cfg = _cfg_from_args(args)
+    device = resolve_device(args.device)
+    graph = load_graph(cfg)
+    propagator = build_propagator(cfg, graph, device=device)
+    model, _ = train_model(graph, propagator, **train_kwargs(cfg))
+    # the table is built from the densified, L1-normalized X (the CSR
+    # operator has no padding rows, so nothing is padded)
+    x = prepare_attr_input(graph, propagator, x_format="dense")
+    table = build_embedding_table(model, x, propagator, level=args.level)
+    queries = table[:args.nqueries]
+    scores, idx = retrieve_topk(queries, table, k=args.topk)
+    scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+    for q in range(args.nqueries):
+        print(f"query node {q}: top-{args.topk} = "
+              f"{idx[q].tolist()} "
+              f"(scores {np.round(scores[q], 4).tolist()})")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """Run one bench and print its result JSON."""
+    from ppnp_tpu_torch.train import PROFILE_TODO
+
+    if args.profile:
+        raise NotImplementedError(PROFILE_TODO)
+    from ppnp_tpu_torch import benchmarks as bm
+
+    dev = args.device
+    if args.training:
+        res = bm.bench_training(dataset=args.dataset,
+                                backend=args.backends[0],
+                                epochs=args.epochs, x_dtype=args.x_dtype,
+                                x_format=args.x_format,
+                                propagation=args.propagation, device=dev)
+    elif args.training_breakdown:
+        res = bm.bench_training_breakdown(
+            dataset=args.dataset, backend=args.backends[0],
+            x_dtype=args.x_dtype, x_format=args.x_format,
+            iters=args.iters, device=dev)
+    elif args.retrieval:
+        res = bm.bench_retrieval(dataset=args.dataset, device=dev)
+    elif args.serving:
+        res = bm.bench_serving(dataset=args.dataset,
+                               backends=tuple(args.backends),
+                               iters=args.iters if args.iters != 10 else 50,
+                               device=dev)
+    elif args.ingest:
+        res = bm.bench_ingest()
+    elif args.exact:
+        res = bm.bench_exact(dataset=args.dataset, device=dev)
+    elif args.blocked_scale:
+        res = bm.bench_blocked(n_nodes=args.blocked_nodes, c=args.c,
+                               niter=args.niter, iters=args.iters)
+    elif args.scaling:
+        res = bm.bench_scaling(dataset=args.dataset, c=args.c,
+                               niter=args.niter, iters=args.iters,
+                               backend=args.backends[0])
+    elif args.c_sweep:
+        res = bm.bench_c_sweep(dataset=args.dataset, niter=args.niter,
+                               iters=args.iters, backends=args.backends,
+                               device=dev)
+    else:
+        res = bm.bench_propagation(dataset=args.dataset, c=args.c,
+                                   niter=args.niter, iters=args.iters,
+                                   backends=args.backends, device=dev)
+    print(json.dumps(res, indent=2, default=float))
+    return 0
+
+
 def cmd_info(args) -> int:
     import torch
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -310,6 +392,64 @@ def main(argv=None) -> int:
                    help="append per-epoch metrics of every run to this "
                         "JSONL file")
     p.set_defaults(fn=cmd_reproduce)
+
+    p = sub.add_parser("bench", help="propagation throughput benchmark")
+    p.add_argument("--dataset", default="ms_academic")
+    p.add_argument("--c", type=int, default=128)
+    p.add_argument("--niter", type=int, default=10)
+    p.add_argument("--iters", type=int, default=30)
+    p.add_argument("--backends", nargs="+", default=["xla", "pallas"])
+    p.add_argument("--scaling", action="store_true",
+                   help="strong-scaling sweep over a device mesh (not "
+                        "ported yet: raises)")
+    p.add_argument("--c-sweep", action="store_true",
+                   help="propagation throughput across feature widths "
+                        "c in {16, 64, 128, 256}")
+    p.add_argument("--training", action="store_true",
+                   help="steady-state training epochs/s")
+    p.add_argument("--x-dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="attribute-matrix dtype for --training "
+                        "(bfloat16 not ported yet)")
+    p.add_argument("--x-format", default="auto",
+                   choices=["auto", "dense", "sparse"],
+                   help="attribute-matrix layout for --training "
+                        "(sparse = fc1 through the SpMM kernel)")
+    p.add_argument("--training-breakdown", action="store_true",
+                   help="per-epoch cost decomposition (train step / "
+                        "eval fwd / MLP vs propagation, ms each)")
+    p.add_argument("--retrieval", action="store_true",
+                   help="top-k retrieval queries/s")
+    p.add_argument("--serving", action="store_true",
+                   help="warm single-forward serving latency p50/p99 "
+                        "per backend")
+    p.add_argument("--propagation", default="power",
+                   choices=["power", "sharded"],
+                   help="with --training: propagation operator family "
+                        "(sharded not ported yet)")
+    p.add_argument("--blocked-scale", action="store_true",
+                   help="xla vs the blocked backend on a large synthetic "
+                        "graph (not ported yet: raises)")
+    p.add_argument("--blocked-nodes", type=int, default=500_000)
+    p.add_argument("--ingest", action="store_true",
+                   help="host-side operator build edges/s")
+    p.add_argument("--exact", action="store_true",
+                   help="dense PPR solve + exact-PPNP forward cost "
+                        "(use --dataset pubmed for the paper-scale row)")
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="profiler trace dir (not ported yet: raises)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("retrieve", help="train + top-k retrieval demo")
+    _add_common(p)
+    p.add_argument("--topk", type=int, default=10)
+    p.add_argument("--nqueries", type=int, default=5)
+    p.add_argument("--level", default="hidden",
+                   choices=["hidden", "logits"])
+    p.set_defaults(fn=cmd_retrieve)
 
     p = sub.add_parser("info", help="device/platform info")
     p.set_defaults(fn=cmd_info)

@@ -282,6 +282,26 @@ def test_fused_kernel_widths(dev, c, mode):
     assert torch.equal(out, chain(csr, x, 0.2, 3, planes))
 
 
+@pytest.mark.parametrize("c,niter", [(64, 10), (128, 10), (128, 100)])
+@pytest.mark.parametrize("mode", ["forward", "adjoint"])
+def test_fused_kernel_embedding_widths(dev, c, niter, mode):
+    """The retrieval width (c = 64, two passes of a 16-lane group over a
+    row's edges an iteration) and the bench's (c = 128, four passes), at
+    K = 10 and at the bench's 100-step chain (99 planes of ``tmp``) on
+    the 40,000-row hub operator: bit-equal to the K1 (or K1-backward)
+    chain and across two launches, within the tolerance of the plain
+    version."""
+    csr, x, planes = _k3_inputs(dev, "hubs", niter, mode == "adjoint",
+                                transpose=mode == "adjoint", c=c)
+    out = _twice_equal(lambda: appnp_fused(csr, x, alpha=0.2, niter=niter,
+                                           e_w_all=planes, mode=mode))
+    chain = _k1_chain if mode == "forward" else _k1_bwd_chain
+    assert torch.equal(out, chain(csr, x, 0.2, niter, planes))
+    ref = appnp_fused_plain(csr, x, alpha=0.2, niter=niter, e_w_all=planes,
+                            mode=mode)
+    torch.testing.assert_close(out, ref, **TOL)
+
+
 @pytest.mark.parametrize("operator", K3_OPERATORS)
 def test_fused_launch_report(dev, operator):
     """The same number of blocks on every SM; the bands cover the rows
@@ -474,3 +494,39 @@ def test_train_models_on_the_card_matches_the_cpu(dev, backend):
         assert r_card["valtest"]["accuracy"] == r_cpu["valtest"]["accuracy"]
         for a, b in zip(m_card.parameters(), m_cpu.parameters()):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("level", ["hidden", "logits"])
+@pytest.mark.parametrize("backend", ["xla", "pallas", "fused"])
+def test_embedding_table_on_the_card_matches_the_cpu(dev, backend, level):
+    """``build_embedding_table`` on the card (K3 or K1 at the hidden width)
+    against the same table built on the CPU within 1e-5; the fused and
+    pallas tables bit-equal on the card, with one K3 or K K1 launches."""
+    from ppnp_tpu_torch import builders
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
+    from ppnp_tpu_torch.models.appnp import init_mlp_params
+    from ppnp_tpu_torch.retrieval import build_embedding_table
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    graph = make_attributed_sbm(n_nodes=3000, n_classes=5, n_features=300,
+                                n_edges=15000, seed=4).standardize()
+    cfg = RunConfig(backend=backend)
+    tables = []
+    for d in (torch.device("cpu"), dev):
+        prop = builders.build_propagator(cfg, graph, device=d)
+        x = prepare_attr_input(graph, prop, x_format="dense")
+        model = init_mlp_params(300, [64], 5, key=prng.PRNGKey(0), device=d)
+        build.reset_launches()
+        tables.append(build_embedding_table(model, x, prop, level=level))
+    want = {"xla": {}, "pallas": {"spmm_csr": 10},
+            "fused": {"appnp_fused": 1}}[backend]
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == want
+    torch.testing.assert_close(tables[1].cpu(), tables[0], **TOL)
+    if backend == "fused":
+        prop = builders.build_propagator(RunConfig(backend="pallas"), graph,
+                                         device=dev)
+        x = prepare_attr_input(graph, prop, x_format="dense")
+        model = init_mlp_params(300, [64], 5, key=prng.PRNGKey(0), device=dev)
+        assert torch.equal(tables[1], build_embedding_table(model, x, prop,
+                                                            level=level))

@@ -96,3 +96,20 @@ def test_other_entry_points_default_to_cuda(no_cuda, tmp_path):
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_retrieve_and_bench_default_to_cuda(no_cuda):
+    from ppnp_tpu_torch.benchmarks import bench_propagation
+    from ppnp_tpu_torch.retrieval import build_embedding_table
+    graph = make_attributed_sbm(60, 3, 20, 150, seed=1).standardize()
+    prop = builders.build_propagator(RunConfig(backend="fused"), graph,
+                                     device="cpu")
+    model = init_mlp_params(20, [4], 3, device="cpu")
+    x = torch.rand(60, 20)
+    assert build_embedding_table(model, x, prop).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["retrieve", "--max-epochs", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["bench", "--iters", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_propagation(iters=1)
