@@ -37,7 +37,12 @@ order; any failure exits non-zero and nothing is caught:
    fc1 at G·hidden = 640 lanes); and at the retrieval width c = 64 on
    Â: K3 (shared plane) held bit-equal to K queued K1 launches before it
    is timed, and the K1 step, each beside its plain version (K1 also
-   beside ``torch.addmm``);
+   beside ``torch.addmm``); and K1 forward and backward at the operator
+   shapes of the blocked arm (each block of the default plan, on H's
+   window as a row view) and of an S = 4 row partition (each shard's
+   interior and boundary operators, the received rows gathered from a
+   full H), the stitched blocked step bit-equal to one K1 launch on the
+   whole operator and the stitched sharded step within 1e-5 of it;
 4. serving: write a checkpoint of random weights from a seeded
    generator, then run ``python -m ppnp_tpu_torch predict`` in process
    through the xla, pallas and fused backends, several requests each;
@@ -70,9 +75,24 @@ order; any failure exits non-zero and nothing is caught:
    breakdown on pallas and fused; exact PPNP on PubMed; host ingest),
    each result printed as a JSON line; fails on an ``"error"`` entry or
    a wrong result;
-10. print one ``{"kernels": [...]}`` line (launches per path, the
-   ``retrieve <arm>`` and ``bench <name>`` paths included), then the
-   card line, then ``{"ok": true, "device": {...}}`` as the last line.
+10. blocked: ``predict --backend blocked`` on the serving checkpoint
+   (n_blocks·K + 1 K1 launches a request, log-probs bit-equal to the
+   pallas arm's, device µs per step beside it), ``train --backend
+   blocked`` (launches per epoch, a falling loss, one epoch on the card
+   against the CPU) and ``bench --blocked-scale`` at its defaults
+   (500 k nodes, 5 M edges, c = 128);
+11. sharded, world size 1 on NCCL: the heartbeat; ``predict
+   --propagation sharded`` on the xla and pallas arms (launch counts,
+   log-probs within 1e-5 of the unsharded pallas arm on the same
+   relabelled graph, device µs per step and the exchange's cost);
+   ``bench --scaling`` on the PubMed surrogate at c = 128 on both arms;
+   ``retrieve_topk_sharded`` and ``_qsharded`` against ``retrieve_topk``
+   on a hidden table built sharded;
+12. print one ``{"kernels": [...]}`` line (launches per path, the
+   ``retrieve <arm>``, ``bench <name>``, ``predict blocked``, ``train
+   blocked``, ``bench blocked``, ``predict sharded <arm>`` and ``bench
+   scaling <arm>`` paths included), then the card line, then ``{"ok":
+   true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout (the package is imported from the checkout). With
@@ -137,32 +157,50 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(fn, inner: int = 20, reps: int = 11, warmup: int = 3) -> float:
-    """Device time of one ``fn()`` call: CUDA events around ``inner``
-    calls queued behind a sleep kernel, so that the host has enqueued
-    them before the first one starts and its launch overhead is hidden;
-    median over ``reps``. A call that waits for the host (the plain
-    versions do) is timed with that wait. A call slower than SLOW_MS
-    (the plain versions at the largest mask shapes) is timed alone, 3
-    times: queueing hides nothing there, and 11 x 20 of it would keep the
-    card busy for minutes and heat it before the next kernel is timed."""
+def queued_ms(fn, inner: int = 20, reps: int = 11, warmup: int = 3):
+    """(device ms of one ``fn()`` call, host ms to enqueue one call,
+    host-bound): CUDA events around ``inner`` calls queued behind a sleep
+    kernel, so that the host has enqueued them before the first one
+    starts and its launch overhead is hidden; medians over ``reps``. When
+    enqueueing the ``inner`` calls took longer than the sleep kernel ran
+    (its own pair of events), the card may have waited for the host, and
+    the first number is host time: host-bound is then True. A call that
+    waits for the host (the plain versions do) is timed with that wait.
+    A call slower than SLOW_MS (the plain versions at the largest mask
+    shapes) is timed alone, 3 times: queueing hides nothing there, and
+    11 x 20 of it would keep the card busy for minutes and heat it before
+    the next kernel is timed."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     if call_ms(fn, reps=1, warmup=0) > SLOW_MS:
         inner, reps = 1, 3
-    times = []
+    times, enqueue, slept = [], [], []
     for _ in range(reps):
+        asleep = torch.cuda.Event(enable_timing=True)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        asleep.record()
         torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(inner):
             fn()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
-    return float(np.median(times))
+        slept.append(asleep.elapsed_time(start))
+    host = float(np.median(enqueue))
+    return (float(np.median(times)), host / inner,
+            host > float(np.median(slept)))
+
+
+def time_ms(fn, inner: int = 20, reps: int = 11, warmup: int = 3) -> float:
+    """The first number of ``queued_ms``: device time of one call, or
+    host time where the call waits for the host or its enqueueing
+    outlasts the sleep (``queued_ms`` says which)."""
+    return queued_ms(fn, inner, reps, warmup)[0]
 
 
 def call_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -232,7 +270,9 @@ def record(name, kernel, plain, library, bytes_moved, flops,
     the tolerance of the plain version), check that a second launch gives
     the same bits, and time kernel, plain version, library call and each
     of ``extra_ms`` (name: function). ``flops`` and ``int_ops`` are the
-    f32 operations and 32-bit integer instructions of the bound."""
+    f32 operations and 32-bit integer instructions of the bound. The
+    kernel's time must be device time: it raises where ``queued_ms``
+    finds it host-bound."""
     out = kernel()
     again = kernel()
     torch.cuda.synchronize()
@@ -250,7 +290,11 @@ def record(name, kernel, plain, library, bytes_moved, flops,
     else:
         err = compare(name, out, plain())
     b_ms, b_by = bound(bytes_moved, flops, int_ops)
-    rec = dict(max_abs_err=err, ms=time_ms(kernel),
+    ms, _, host_bound = queued_ms(kernel)
+    if host_bound:
+        raise SystemExit(f"{name}: enqueueing the timed launches outlasted "
+                         "the sleep kernel; the time would be host time")
+    rec = dict(max_abs_err=err, ms=ms,
                plain_ms=time_ms(plain),
                library_ms=None if library is None else time_ms(library),
                bound_ms=b_ms, bound_by=b_by, call_ms=call_ms(kernel),
@@ -1609,6 +1653,417 @@ def bench_path(dev):
     return launches
 
 
+def block_and_shard_records(dev):
+    """K1 at the operator shapes of the blocked and the sharded paths on
+    MS Academic (c = 15, the propagation step's shared (1-α) plane), each
+    held against its plain version and timed beside its bound and
+    ``torch.addmm`` (forward) or ``torch.sparse.mm`` (backward), as phase
+    3 does: every block of the default plan (16,384 rows a block, on H's
+    window as a row view), and the interior and boundary operators of
+    every shard of an S = 4 partition of the RCM-relabelled graph, with
+    the received rows gathered from a full H on the host side. The
+    stitched blocked step is held bit-equal to the unsharded K1 step and
+    the stitched sharded step within RTOL of it. Returns the forward and
+    backward records to merge under ``spmm_csr`` and ``spmm_csr_bwd``."""
+    from ppnp_tpu_torch.builders import load_graph, resolve_alpha
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.kernels.blocked import build_blocked_csr
+    from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_bwd,
+                                             spmm_csr_plain)
+    from ppnp_tpu_torch.ops.normalize import calc_A_hat
+    from ppnp_tpu_torch.ops.sparse import csr_from_scipy, rcm_permutation
+    from ppnp_tpu_torch.parallel.partition import (build_sharded_csr,
+                                                   build_sharded_graph)
+
+    cfg = RunConfig(dataset=DATASET)
+    graph = load_graph(cfg)
+    a_hat = calc_A_hat(graph.adj_matrix)
+    alpha, n = resolve_alpha(cfg), a_hat.shape[0]
+    c = int(graph.labels.max()) + 1
+    rng = np.random.RandomState(3)
+
+    def randn(rows):
+        return torch.from_numpy(rng.randn(rows, c).astype(np.float32)).to(
+            dev)
+
+    def read_rows(op) -> int:
+        """The input rows an operator reads: its distinct columns (a
+        block's window reaches into padding rows no edge reads, and a
+        boundary operator's columns skip the shard's own block)."""
+        return int(torch.unique(op.col).numel())
+
+    def held(name, op, op_t, h, init, g):
+        """Forward (with init) and backward records of one operator; h is
+        the operator's columns, g its rows' cotangent. The bound reads
+        only the rows of h and g that an entry gathers."""
+        w, w_t = (1.0 - alpha) * op.val, (1.0 - alpha) * op_t.val
+        lib, lib_t = csr_tensor(op, w), csr_tensor(op_t, w_t)
+        fwd = record(f"K1 {name}", lambda: spmm_csr(op, h, w, init),
+                     lambda: spmm_csr_plain(op, h, w, init),
+                     lambda: torch.addmm(init, lib, h),
+                     (op.n_rows + 1) * 4 + op.nnz * 8
+                     + (read_rows(op) + 2 * op.n_rows) * c * 4,
+                     2 * op.nnz * c + op.n_rows * c)
+        bwd = record(f"K1 bwd {name}", lambda: spmm_csr_bwd(op_t, g, w_t),
+                     lambda: spmm_csr_plain(op_t, g, w_t),
+                     lambda: torch.sparse.mm(lib_t, g),
+                     (op_t.n_rows + 1) * 4 + op_t.nnz * 8
+                     + (read_rows(op_t) + op_t.n_rows) * c * 4,
+                     2 * op_t.nnz * c)
+        print(f"K1 {name}: bound reads {read_rows(op)} of {op.n_cols} H "
+              f"rows forward, {read_rows(op_t)} of {op_t.n_cols} cotangent "
+              "rows backward")
+        return fwd, bwd
+
+    fwd, bwd = {}, {}
+    # the blocked plan of --backend blocked at its default rows_per_block
+    bcsr = build_blocked_csr(a_hat, device=dev)
+    r, hw = bcsr.rows_per_block, bcsr.hw
+    print(f"blocked plan: {bcsr.n_blocks} blocks of {r} rows, H window "
+          f"{hw}, col_lo {list(bcsr.col_lo)}, nnz per block "
+          f"{[blk.nnz for blk in bcsr.blocks]}")
+    hp, gp = randn(bcsr.n_pad), randn(bcsr.n_pad)
+    hp[n:] = 0.0   # the padding rows of H⁰, as the blocked arm pads it
+    init = alpha * hp
+    for b, (blk, blk_t, lo) in enumerate(zip(bcsr.blocks, bcsr.blocks_t,
+                                             bcsr.col_lo)):
+        rows = slice(b * r, (b + 1) * r)
+        fwd[f"block{b}"], bwd[f"block{b}"] = held(
+            f"blocked step, block {b} ({r} x {hw})", blk, blk_t,
+            hp[lo:lo + hw], init[rows], gp[rows])
+    a_rcm = csr_from_scipy(a_hat, perm=rcm_permutation(a_hat), device=dev)
+    stitched = torch.cat([spmm_csr(blk, hp[lo:lo + hw],
+                                   (1.0 - alpha) * blk.val,
+                                   init[b * r:(b + 1) * r])
+                          for b, (blk, lo) in enumerate(zip(bcsr.blocks,
+                                                            bcsr.col_lo))])
+    whole = spmm_csr(a_rcm, hp[:n].contiguous(), (1.0 - alpha) * a_rcm.val,
+                     init[:n].contiguous())
+    torch.cuda.synchronize()
+    same = torch.equal(stitched[:n], whole)
+    print(f"blocked step stitched from {bcsr.n_blocks} K1 launches vs one "
+          f"K1 launch on the whole RCM operator: "
+          f"{'bit-equal' if same else 'NOT bit-equal'}")
+    if not same or stitched[n:].abs().max() != 0:
+        raise SystemExit("the blocked step differs from the whole step")
+
+    # an S = 4 partition of the graph relabelled as load_graph does for
+    # --propagation sharded
+    perm = rcm_permutation(a_hat)
+    a_rel = a_hat[perm][:, perm].tocsr()
+    sg = build_sharded_graph(a_rel, n_shards=4)
+    s, nb = sg.shard_rows, sg.n_shards * sg.boundary
+    print(f"sharded plan, S = 4: shard_rows {s}, boundary {sg.boundary}, "
+          f"edges_pad {sg.edges_pad}, interior_pad {sg.interior_pad}")
+    h, g = randn(sg.n_pad), randn(sg.n_pad)
+    outs = []
+    for d, op in enumerate(build_sharded_csr(sg, device=dev)):
+        rows = slice(d * s, (d + 1) * s)
+        # the rows this shard receives: block o = shard o's send list
+        idx = (np.arange(sg.n_shards)[:, None] * s
+               + sg.send_idx[:, d, :]).reshape(-1)
+        recv = h.index_select(0, torch.from_numpy(idx).to(dev))
+        h_loc, init_d = h[rows], alpha * h[rows]
+        print(f"shard {d}: interior nnz {op.interior.nnz}, boundary nnz "
+              f"{op.boundary.nnz} over {nb} received rows")
+        fwd[f"shard{d}_interior"], bwd[f"shard{d}_interior"] = held(
+            f"shard {d}/4 interior ({s} x {s})", op.interior, op.interior_t,
+            h_loc, init_d, g[rows])
+        out_i = spmm_csr(op.interior, h_loc, (1.0 - alpha) * op.interior.val,
+                         init_d)
+        fwd[f"shard{d}_boundary"], bwd[f"shard{d}_boundary"] = held(
+            f"shard {d}/4 boundary ({s} x {nb})", op.boundary,
+            op.boundary_t, recv, out_i, g[rows])
+        outs.append(spmm_csr(op.boundary, recv,
+                             (1.0 - alpha) * op.boundary.val, out_i))
+    a_plain = csr_from_scipy(a_rel, device=dev)
+    want = spmm_csr(a_plain, h[:n].contiguous(), (1.0 - alpha) * a_plain.val,
+                    alpha * h[:n].contiguous())
+    err = compare("sharded step (S = 4) stitched vs the unsharded step",
+                  torch.cat(outs)[:n], want)
+    print(f"sharded step stitched from 4 x 2 K1 launches vs one K1 launch "
+          f"on the whole operator: max_abs_err={err:.3g} (tol {RTOL})")
+    return fwd, bwd
+
+
+BLOCKED_EPOCHS = 20   # train --backend blocked
+
+
+def blocked_launches_per_epoch(niter: int, n_blocks: int) -> dict:
+    """Kernel launches of one blocked training epoch with sparse X: the
+    pallas arm's, with each propagation step K1 once per block (forward
+    and backward) and the step masks one launch per block (the K planes
+    of the block and its transpose)."""
+    return {"spmm_csr": 1 + n_blocks * niter + 1 + n_blocks * niter,
+            "spmm_csr_bwd": n_blocks * niter + 1,
+            "edge_masks": 1 + n_blocks, "dropout_mask": 1}
+
+
+def step_us(prop, h, niter: int) -> str:
+    """µs per propagation step of one eval ``propagate`` call, 5 calls
+    queued: device time, or host time where enqueueing the calls
+    outlasted the sleep (labelled host-bound), beside the host µs a step
+    takes to enqueue."""
+    with torch.no_grad():
+        ms, host_ms, host_bound = queued_ms(lambda: prop.propagate(h),
+                                            inner=EXTRA_INNER)
+    clock = "host-bound" if host_bound else "device"
+    return (f"{ms * 1e3 / niter:.3f} ({clock}; enqueue "
+            f"{host_ms * 1e3 / niter:.3f} host us a step)")
+
+
+def blocked_path(dev):
+    """The blocked backend: ``predict --backend blocked`` on the serving
+    checkpoint (n_blocks·K + 1 K1 launches a request; log-probs
+    bit-equal to the pallas arm's), device µs per step against the
+    pallas arm, ``train --backend blocked`` (launches per epoch, a
+    falling loss, one epoch on the card against the CPU), and ``bench
+    --blocked-scale`` at its defaults. Returns launch counts per path."""
+    from ppnp_tpu_torch import benchmarks as bm
+    from ppnp_tpu_torch.__main__ import main as cli_main
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.checkpoint import restore_checkpoint
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.kernels import build
+    from ppnp_tpu_torch.models.appnp import MLP, ppnp_forward
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    ckpt = ROOT / "build" / "chip_smoke"
+    graph = load_graph(RunConfig(dataset=DATASET))
+    n = graph.num_nodes()
+    props = {b: build_propagator(RunConfig(dataset=DATASET, backend=b),
+                                 graph, device=dev)
+             for b in ("blocked", "pallas")}
+    bcsr, niter = props["blocked"].blocked, props["blocked"].niter
+    launches = {}
+    out_npz = ckpt / "preds_blocked.npz"
+    buf = io.StringIO()
+    build.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["predict", "--dataset", DATASET, "--backend",
+                       "blocked", "--device", str(dev), "--checkpoint-dir",
+                       str(ckpt), "--out", str(out_npz), "--requests",
+                       str(REQUESTS)])
+    launches["predict blocked"] = got = dict(build.LAUNCHES)
+    if rc != 0:
+        raise SystemExit(f"predict --backend blocked exited {rc}")
+    want = {k: 0 for k in got}
+    want["spmm_csr"] = (bcsr.n_blocks * niter + 1) * REQUESTS
+    res = json.loads(buf.getvalue())
+    preds = np.load(out_npz)["predictions"]
+    print(f"predict --backend blocked ({bcsr.n_blocks} blocks): "
+          f"request_ms={[round(t, 3) for t in res['request_ms']]} "
+          f"launches={got}")
+    if got != want:
+        raise SystemExit(f"predict --backend blocked: launches {got}, "
+                         f"expected {want}")
+    if not np.array_equal(preds, np.load(ckpt / "preds_pallas.npz")
+                          ["predictions"]):
+        raise SystemExit("predict --backend blocked: predictions differ "
+                         "from the pallas arm's")
+    state = restore_checkpoint(str(ckpt))
+    model = MLP.from_state_dict(state["best_state"], device=dev)
+    x = prepare_attr_input(graph, props["pallas"])
+    with torch.no_grad():
+        logp = {b: ppnp_forward(model, x, p) for b, p in props.items()}
+    same = torch.equal(logp["blocked"], logp["pallas"])
+    print(f"log-probs blocked vs pallas: {'bit-equal' if same else 'differ'}"
+          f" (max abs diff "
+          f"{float((logp['blocked'] - logp['pallas']).abs().max()):.3g})")
+    if not same:
+        raise SystemExit("log-probs of the blocked and pallas arms differ")
+    h = torch.from_numpy(np.random.RandomState(4).randn(
+        n, logp["pallas"].shape[1]).astype(np.float32)).to(dev)
+    print("us per eval step (c = 15, K = 10 a call, 5 calls queued): "
+          + ", ".join(f"{b} {step_us(p, h, niter)}"
+                      for b, p in props.items()))
+
+    ckpt_b = ROOT / "build" / "chip_smoke" / "train_blocked"
+    metrics = ckpt_b.with_suffix(".jsonl")
+    if metrics.exists():
+        metrics.unlink()
+    buf = io.StringIO()
+    build.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["train", "--dataset", DATASET, "--backend", "blocked",
+                       "--x-format", "sparse", "--device", str(dev),
+                       "--max-epochs", str(BLOCKED_EPOCHS), "--patience",
+                       "100", "--print-interval", "0", "--checkpoint-dir",
+                       str(ckpt_b), "--metrics-out", str(metrics)])
+    launches["train blocked"] = got = dict(build.LAUNCHES)
+    if rc != 0:
+        raise SystemExit(f"train --backend blocked exited {rc}")
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    rows = [r for r in rows if r["event"] == "epoch"]
+    losses = [r["train_loss"] for r in rows]
+    per = blocked_launches_per_epoch(niter, bcsr.n_blocks)
+    want = {k: per.get(k, 0) * BLOCKED_EPOCHS for k in got}
+    want["spmm_csr"] += 1 + bcsr.n_blocks * niter   # the final evaluation
+    ts = np.array([r["ts"] for r in rows])
+    print(f"train --backend blocked: {len(rows)} epochs, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, ms/epoch (median, host "
+          f"clock) {float(np.median(np.diff(ts[1:]))) * 1e3:.3f}, launches "
+          f"per epoch {per}")
+    if got != want or len(rows) != BLOCKED_EPOCHS:
+        raise SystemExit(f"train --backend blocked: {len(rows)} epochs, "
+                         f"launches {got}, expected {want}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit(f"train --backend blocked: loss not finite and "
+                         f"falling: {losses}")
+    epoch_on_card_vs_cpu(dev, "blocked")
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = bm.bench_blocked(device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches["bench blocked"] = got = dict(build.LAUNCHES)
+    print(json.dumps({"bench": "blocked", "seconds": secs, "result": res},
+                     default=float))
+    calls = 1 + 3 * 3   # a warm-up call and 3 trials of iters = 3 calls
+    want_k1 = res["blocks"]["n_blocks"] * res["niter"] * calls
+    if _errors(res) or got["spmm_csr"] != want_k1 or not all(
+            np.isfinite(v) and v > 0 for b in res["backends"].values()
+            for v in b.values()):
+        raise SystemExit(f"bench blocked: {res}, launches {got}, expected "
+                         f"{want_k1} K1")
+    return launches
+
+
+def sharded_path(dev):
+    """The flat sharded path at world size 1 on NCCL: the heartbeat;
+    ``predict --propagation sharded`` on the xla and pallas arms (2·K K1
+    launches a request on pallas, none on xla), their log-probs within
+    RTOL of the unsharded pallas arm on the same relabelled graph, device
+    µs per step beside it and the exchange's cost; ``bench --scaling`` on
+    the PubMed surrogate at c = 128 on both arms; the hidden table built
+    sharded and ``retrieve_topk_sharded`` / ``_qsharded`` against
+    ``retrieve_topk``. Returns launch counts per path."""
+    import torch.distributed as dist
+
+    from ppnp_tpu_torch import benchmarks as bm
+    from ppnp_tpu_torch.__main__ import main as cli_main
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.checkpoint import restore_checkpoint
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.kernels import build
+    from ppnp_tpu_torch.models.appnp import MLP, ppnp_forward
+    from ppnp_tpu_torch.parallel.health import heartbeat
+    from ppnp_tpu_torch.parallel.mesh import make_mesh
+    from ppnp_tpu_torch.retrieval import (build_embedding_table,
+                                          retrieve_topk,
+                                          retrieve_topk_qsharded,
+                                          retrieve_topk_sharded)
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    mesh = make_mesh(device=dev)
+    if dist.get_backend() != "nccl" or mesh.world_size != 1:
+        raise SystemExit(f"sharded phase: backend {dist.get_backend()}, "
+                         f"world size {mesh.world_size}")
+    print(f"heartbeat (NCCL, world size 1): "
+          f"{heartbeat(mesh, timeout_s=60) * 1e3:.3f} ms")
+    ckpt = ROOT / "build" / "chip_smoke"
+    cfg = RunConfig(dataset=DATASET, propagation="sharded")
+    graph = load_graph(cfg)   # relabelled by RCM, as the CLI loads it
+    n = graph.num_nodes()
+    model = MLP.from_state_dict(restore_checkpoint(str(ckpt))["best_state"],
+                                device=dev)
+    ref = build_propagator(RunConfig(dataset=DATASET, backend="pallas"),
+                           graph, device=dev)
+    with torch.no_grad():
+        ref_logp = ppnp_forward(model, prepare_attr_input(
+            graph, ref, x_format="dense"), ref)
+    niter = ref.niter
+    h = torch.from_numpy(np.random.RandomState(5).randn(
+        n, ref_logp.shape[1]).astype(np.float32)).to(dev)
+    launches = {}
+    for b in ("xla", "pallas"):
+        out_npz = ckpt / f"preds_sharded_{b}.npz"
+        buf = io.StringIO()
+        build.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["predict", "--dataset", DATASET, "--propagation",
+                           "sharded", "--backend", b, "--device", str(dev),
+                           "--checkpoint-dir", str(ckpt), "--out",
+                           str(out_npz), "--requests", str(REQUESTS)])
+        launches[f"predict sharded {b}"] = got = dict(build.LAUNCHES)
+        if rc != 0:
+            raise SystemExit(f"predict --propagation sharded --backend {b} "
+                             f"exited {rc}")
+        want = {k: 0 for k in got}
+        if b == "pallas":
+            want["spmm_csr"] = 2 * niter * REQUESTS
+        res = json.loads(buf.getvalue())
+        preds = np.load(out_npz)["predictions"]
+        agree = float((preds == ref_logp.argmax(-1).cpu().numpy()).mean())
+        print(f"predict --propagation sharded --backend {b}: n={res['n']} "
+              f"request_ms={[round(t, 3) for t in res['request_ms']]} "
+              f"launches={got}; argmax equal to the unsharded pallas arm on "
+              f"{agree:.6f}")
+        if got != want or agree < AGREE:
+            raise SystemExit(f"predict sharded {b}: launches {got}, "
+                             f"expected {want}; agreement {agree}")
+        prop = build_propagator(RunConfig(dataset=DATASET,
+                                          propagation="sharded", backend=b),
+                                graph, device=dev)
+        x = prepare_attr_input(graph, prop)
+        with torch.no_grad():
+            logp = ppnp_forward(model, x, prop)[:n]
+        err = compare(f"log-probs sharded {b} vs unsharded pallas", logp,
+                      ref_logp)
+        h_loc = torch.nn.functional.pad(h, (0, 0, 0, prop.n_rows - n))
+        x_ms, x_host, x_bound = queued_ms(lambda: prop._exchange(h_loc))
+        print(f"log-probs sharded {b} (world size 1) vs the unsharded "
+              f"pallas arm: max_abs_err={err:.3g} (tol {RTOL}); us per "
+              f"eval step {step_us(prop, h_loc, niter)} against "
+              f"{step_us(ref, h, niter)} unsharded; the exchange "
+              f"(all_to_all of {prop.graph.boundary} rows) {x_ms * 1e3:.3f} "
+              f"us ({'host-bound' if x_bound else 'device'}; enqueue "
+              f"{x_host * 1e3:.3f} host us)")
+        del x
+
+    for b in ("xla", "pallas"):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = bm.bench_scaling(dataset="pubmed", c=128, niter=10, iters=10,
+                               backend=b, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[f"bench scaling {b}"] = got = dict(build.LAUNCHES)
+        print(json.dumps({"bench": f"scaling {b}", "seconds": secs,
+                          "result": res}, default=float))
+        want_k1 = 2 * 10 * (1 + 3 * 10) if b == "pallas" else 0
+        if set(res["shards"]) != {1} or got["spmm_csr"] != want_k1 \
+                or not res["shards"][1]["steps_per_s"] > 0:
+            raise SystemExit(f"bench scaling {b}: {res}, launches {got}")
+
+    state = restore_checkpoint(str(ckpt / "train_pallas"))
+    model = MLP.from_state_dict(state["best_state"], device=dev)
+    prop = build_propagator(RunConfig(dataset=DATASET, propagation="sharded",
+                                      backend="pallas"), graph, device=dev)
+    table = build_embedding_table(model, prepare_attr_input(graph, prop),
+                                  prop, level="hidden")
+    rng = np.random.RandomState(0)
+    q = table[torch.from_numpy(rng.randint(0, n, QUERIES)).to(dev)] \
+        + 0.01 * torch.from_numpy(rng.randn(QUERIES, HIDDEN).astype(
+            np.float32)).to(dev)
+    want_s, want_i = retrieve_topk(q, table[:n], k=10)
+    for name, fn in (("sharded", retrieve_topk_sharded),
+                     ("qsharded", retrieve_topk_qsharded)):
+        s, i = fn(q, table, 10, mesh=prop.mesh, n_valid=n)
+        agree = float((i == want_i).float().mean())
+        err = compare(f"retrieve_topk_{name} scores", s, want_s)
+        print(f"retrieve_topk_{name} (world size 1) vs retrieve_topk: "
+              f"indices equal on {agree:.6f} of (query, rank) slots, "
+              f"scores max_abs_err={err:.3g}")
+        if agree < AGREE:
+            raise SystemExit(f"retrieve_topk_{name}: agreement {agree}")
+    dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1645,6 +2100,11 @@ def main() -> int:
         [recs["spmm_csr"]["max_abs_err"]]
         + [r["max_abs_err"] for r in k1_eval.values()]))
     recs.update(grouped)
+    fwd, bwd = block_and_shard_records(dev)
+    for name, extra in (("spmm_csr", fwd), ("spmm_csr_bwd", bwd)):
+        recs[name].update(extra, max_abs_err=max(
+            [recs[name]["max_abs_err"]]
+            + [r["max_abs_err"] for r in extra.values()]))
     if not_exact:
         raise SystemExit(f"not bit-equal to the K1 chain: {not_exact}")
     if "--kernels-only" in sys.argv[1:]:
@@ -1664,6 +2124,12 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(bench_path(dev))
     print(f"bench phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches.update(blocked_path(dev))
+    print(f"blocked phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches.update(sharded_path(dev))
+    print(f"sharded phase: {time.perf_counter() - t0:.2f} s")
 
     meta = {
         "spmm_csr": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",

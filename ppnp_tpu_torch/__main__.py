@@ -13,12 +13,23 @@ per-query lines (``ppnp_tpu/__main__.py:257-284``); ``bench`` prints the
 result JSON of the chosen bench (``ppnp_tpu_torch/benchmarks.py``), the
 JAX command's flags but ``--layout``.
 
+``--backend blocked`` runs K1 once per RCM row block
+(``--rows-per-block``). ``--propagation sharded`` (``--n-shards``,
+``--exchange``, ``--shard-reorder``) runs one rank per shard over
+``torch.distributed``: launch ``torchrun --nproc-per-node N -m
+ppnp_tpu_torch ...``, or run it alone for world size 1; only rank 0
+prints. ``predict`` and ``retrieve`` take it; ``retrieve`` trains on
+rank 0 on the unsharded operator of the same arm (sharded training is
+not ported yet), broadcasts the weights and serves the table sharded
+(``retrieve_topk_sharded``). ``bench --scaling`` runs over the same
+process group, and ``bench --retrieval`` adds its sharded paths under
+``torchrun``.
+
 Flags of the JAX CLI that select what the port does not have yet are
 accepted so the same command lines parse, and raise where they matter
-(``--propagation sharded``, ``--backend blocked``,
-``--x-dtype bfloat16``, ``train --tensorboard``, ``--profile``,
-``bench --scaling`` and ``--blocked-scale``); ``--layout`` and the
-sharding flags do not change a CSR operator on one card.
+(``train --propagation sharded``, ``--n-slices`` > 1,
+``--x-dtype bfloat16``, ``train --tensorboard``, ``--profile``);
+``--layout`` does not change a CSR operator.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 import time
 
@@ -56,8 +68,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    choices=["xla", "pallas", "blocked", "fused"],
                    help="SpMM path: xla = plain torch gather + index_add_; "
                         "pallas = the CSR SpMM kernel once per step; "
-                        "fused = all K steps in ONE kernel launch (the "
-                        "serving-latency path)")
+                        "blocked = that kernel once per RCM row block "
+                        "(--rows-per-block); fused = all K steps in ONE "
+                        "kernel launch (the serving-latency path)")
     p.add_argument("--rows-per-block", type=int, default=16384)
     p.add_argument("--layout", default="banded",
                    choices=["banded", "aligned", "auto"],
@@ -80,6 +93,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "for large, very sparse X (train.prepare_attr_input)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+
+
+def _is_rank0() -> bool:
+    """Whether this process prints: rank 0, or no process group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _cfg_from_args(args) -> RunConfig:
@@ -164,6 +183,8 @@ def cmd_predict(args) -> int:
 
     graph = load_graph(cfg)
     propagator = build_propagator(cfg, graph, device=device)
+    # a sharded propagator's device is this rank's (cuda:LOCAL_RANK)
+    model = model.to(propagator.device)
     x = prepare_attr_input(graph, propagator, x_format=cfg.x_format,
                            x_dtype=cfg.x_dtype)
     n = graph.num_nodes()
@@ -181,9 +202,11 @@ def cmd_predict(args) -> int:
         "dataset": cfg.dataset,
         "n": int(n),
         "accuracy_all_nodes": float((preds == labels).mean()),
-        "device": str(device),
+        "device": str(propagator.device),
         "request_ms": request_ms,
     }
+    if not _is_rank0():
+        return 0
     if args.out:
         np.savez(args.out, predictions=preds, labels=labels)
         out["out"] = args.out
@@ -245,24 +268,54 @@ def cmd_reproduce(args) -> int:
 
 def cmd_retrieve(args) -> int:
     """Train, then print each of the first ``--nqueries`` nodes' top-k
-    neighbours in the propagated embedding table."""
+    neighbours in the propagated embedding table.
+
+    Under ``--propagation sharded`` rank 0 trains the model on the
+    unsharded operator of the same arm over the same relabelled graph
+    (sharded training is ROADMAP item 6) and broadcasts its weights, so
+    every rank serves the one model; then the table is built sharded,
+    each rank its rows, and scored with ``retrieve_topk_sharded``."""
+    import dataclasses
+
     from ppnp_tpu_torch.builders import (build_propagator, load_graph,
                                          train_kwargs)
     from ppnp_tpu_torch.device import resolve_device
-    from ppnp_tpu_torch.retrieval import build_embedding_table, retrieve_topk
+    from ppnp_tpu_torch.parallel.mesh import broadcast_from_rank0
+    from ppnp_tpu_torch.parallel.sharded import all_gather_rows
+    from ppnp_tpu_torch.retrieval import (build_embedding_table,
+                                          retrieve_topk,
+                                          retrieve_topk_sharded)
     from ppnp_tpu_torch.train import prepare_attr_input, train_model
 
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
     graph = load_graph(cfg)
     propagator = build_propagator(cfg, graph, device=device)
-    model, _ = train_model(graph, propagator, **train_kwargs(cfg))
+    sharded = cfg.propagation == "sharded"
+    if not sharded:
+        model, _ = train_model(graph, propagator, **train_kwargs(cfg))
+    else:
+        def train_unsharded():
+            trainer = build_propagator(
+                dataclasses.replace(cfg, propagation="power"), graph,
+                device=propagator.device)
+            return train_model(graph, trainer, **train_kwargs(cfg))[0]
+        model = broadcast_from_rank0(train_unsharded, propagator.mesh)
     # the table is built from the densified, L1-normalized X (the CSR
-    # operator has no padding rows, so nothing is padded)
+    # operator has no padding rows, so nothing is padded; a sharded
+    # table is this rank's rows, padded at the tail)
     x = prepare_attr_input(graph, propagator, x_format="dense")
     table = build_embedding_table(model, x, propagator, level=args.level)
-    queries = table[:args.nqueries]
-    scores, idx = retrieve_topk(queries, table, k=args.topk)
+    if sharded:
+        queries = all_gather_rows(table, propagator.mesh)[:args.nqueries]
+        scores, idx = retrieve_topk_sharded(
+            queries, table, k=args.topk, mesh=propagator.mesh,
+            n_valid=graph.num_nodes())
+    else:
+        scores, idx = retrieve_topk(table[:args.nqueries], table,
+                                    k=args.topk)
+    if not _is_rank0():
+        return 0
     scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
     for q in range(args.nqueries):
         print(f"query node {q}: top-{args.topk} = "
@@ -292,7 +345,12 @@ def cmd_bench(args) -> int:
             x_dtype=args.x_dtype, x_format=args.x_format,
             iters=args.iters, device=dev)
     elif args.retrieval:
-        res = bm.bench_retrieval(dataset=args.dataset, device=dev)
+        # under torchrun the sharded paths run over its ranks
+        from ppnp_tpu_torch.parallel.mesh import make_mesh
+        mesh = (make_mesh(device=dev) if "WORLD_SIZE" in os.environ
+                else None)
+        res = bm.bench_retrieval(dataset=args.dataset, device=dev,
+                                 mesh=mesh)
     elif args.serving:
         res = bm.bench_serving(dataset=args.dataset,
                                backends=tuple(args.backends),
@@ -304,11 +362,12 @@ def cmd_bench(args) -> int:
         res = bm.bench_exact(dataset=args.dataset, device=dev)
     elif args.blocked_scale:
         res = bm.bench_blocked(n_nodes=args.blocked_nodes, c=args.c,
-                               niter=args.niter, iters=args.iters)
+                               niter=args.niter, iters=args.iters,
+                               device=dev)
     elif args.scaling:
         res = bm.bench_scaling(dataset=args.dataset, c=args.c,
                                niter=args.niter, iters=args.iters,
-                               backend=args.backends[0])
+                               backend=args.backends[0], device=dev)
     elif args.c_sweep:
         res = bm.bench_c_sweep(dataset=args.dataset, niter=args.niter,
                                iters=args.iters, backends=args.backends,
@@ -317,7 +376,8 @@ def cmd_bench(args) -> int:
         res = bm.bench_propagation(dataset=args.dataset, c=args.c,
                                    niter=args.niter, iters=args.iters,
                                    backends=args.backends, device=dev)
-    print(json.dumps(res, indent=2, default=float))
+    if _is_rank0():
+        print(json.dumps(res, indent=2, default=float))
     return 0
 
 
@@ -400,8 +460,9 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=30)
     p.add_argument("--backends", nargs="+", default=["xla", "pallas"])
     p.add_argument("--scaling", action="store_true",
-                   help="strong-scaling sweep over a device mesh (not "
-                        "ported yet: raises)")
+                   help="strong-scaling sweep of the sharded propagation "
+                        "over the process group (torchrun, or world size "
+                        "1)")
     p.add_argument("--c-sweep", action="store_true",
                    help="propagation throughput across feature widths "
                         "c in {16, 64, 128, 256}")
@@ -426,10 +487,10 @@ def main(argv=None) -> int:
     p.add_argument("--propagation", default="power",
                    choices=["power", "sharded"],
                    help="with --training: propagation operator family "
-                        "(sharded not ported yet)")
+                        "(sharded training not ported yet)")
     p.add_argument("--blocked-scale", action="store_true",
                    help="xla vs the blocked backend on a large synthetic "
-                        "graph (not ported yet: raises)")
+                        "graph")
     p.add_argument("--blocked-nodes", type=int, default=500_000)
     p.add_argument("--ingest", action="store_true",
                    help="host-side operator build edges/s")

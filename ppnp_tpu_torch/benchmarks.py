@@ -1,10 +1,11 @@
-"""Single-device benches: propagation throughput, training, serving,
-retrieval, exact PPNP and host ingest, timed on the card.
+"""Benches: propagation throughput, the blocked backend, strong scaling
+of the sharded propagation, training, serving, retrieval, exact PPNP and
+host ingest, timed on the card.
 
-Counterpart of ``ppnp_tpu/benchmarks.py`` for one device. Every bench
-takes ``device`` (default ``cuda``; ``"cpu"`` runs the kernels' plain
-versions, so its times say nothing of the card) and returns the JAX
-bench's keys, with ``device`` the card's name. What differs:
+Counterpart of ``ppnp_tpu/benchmarks.py``. Every bench takes ``device``
+(default ``cuda``; ``"cpu"`` runs the kernels' plain versions, so its
+times say nothing of the card) and returns the JAX bench's keys, with
+``device`` the card's name. What differs:
 
 - Timing (``_time``): ``iters`` calls between two
   ``torch.cuda.synchronize()``, median of three trials, a fresh first
@@ -14,38 +15,49 @@ bench's keys, with ``device`` the card's name. What differs:
 - The operator is Â in CSR under RCM for every kernel arm
   (``"layout": "csr_rcm"``); the TPU pair-chunk layouts and their issue
   model (``layout``, ``issue_floor_stats``) have no counterpart.
-- Backends are ``xla``, ``pallas`` and ``fused``. ``blocked`` (and
-  ``bench_blocked``) waits for ROADMAP item 5, the sharded paths
-  (``bench_scaling``, sharded training, sharded retrieval) for item 6,
-  bfloat16 X for item 7. Those raise. Nothing else is caught: a kernel
-  that fails to build or launch fails the bench.
+- The sharded paths (``bench_scaling``, the sharded paths of
+  ``bench_retrieval``) run over the process group of ``parallel/mesh.py``
+  (world size 1 when nothing launched more ranks); each rank times its
+  own calls, and ``bench_scaling`` reports the slowest rank's time.
+- Sharded training waits for ROADMAP item 6 and bfloat16 X for item 7;
+  those raise. Nothing else is caught: a kernel that fails to build or
+  launch fails the bench.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import scipy.sparse as sp
 import torch
+import torch.distributed as dist
 
 from ppnp_tpu_torch import preprocessing
-from ppnp_tpu_torch.builders import (_NOT_PORTED, build_propagator,
-                                     load_graph, resolve_alpha,
-                                     train_kwargs)
+from ppnp_tpu_torch.builders import (build_propagator, load_graph,
+                                     resolve_alpha, train_kwargs)
 from ppnp_tpu_torch.config import RunConfig
 from ppnp_tpu_torch.device import resolve_device
 from ppnp_tpu_torch.models.appnp import (init_mlp_params, l2_reg,
                                          mlp_forward, ppnp_forward)
+from ppnp_tpu_torch.kernels.blocked import build_blocked_csr
 from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.ops.exact import PPRExact, calc_ppr_exact
 from ppnp_tpu_torch.ops.normalize import calc_A_hat
-from ppnp_tpu_torch.ops.sparse import csr_from_scipy, csr_transpose
+from ppnp_tpu_torch.ops.propagation import PPRPowerIteration
+from ppnp_tpu_torch.ops.sparse import (csr_from_scipy, csr_transpose,
+                                       edge_list_from_scipy)
 from ppnp_tpu_torch.ops.sparse_input import SparseInput
 from ppnp_tpu_torch.optim import Adam
-from ppnp_tpu_torch.retrieval import build_embedding_table, retrieve_topk
+from ppnp_tpu_torch.parallel.mesh import Mesh, make_mesh
+from ppnp_tpu_torch.parallel.partition import (build_sharded_csr,
+                                               build_sharded_graph)
+from ppnp_tpu_torch.parallel.sharded import ShardedPowerIteration
+from ppnp_tpu_torch.retrieval import (build_embedding_table, retrieve_topk,
+                                      retrieve_topk_qsharded,
+                                      retrieve_topk_sharded)
 from ppnp_tpu_torch.train import (_nll, default_idx_split_args,
                                   prepare_attr_input, train_model)
 
@@ -61,11 +73,6 @@ __all__ = ["bench_propagation", "bench_c_sweep", "bench_blocked",
 HBM_BYTES_PER_S = 3.35e12
 # the kernel arms' operator: Â in CSR under reverse Cuthill-McKee
 LAYOUT = "csr_rcm"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet "
-                               f"({_NOT_PORTED[item]})")
 
 
 def _device_name(dev: torch.device) -> str:
@@ -192,16 +199,174 @@ def bench_c_sweep(
     return result
 
 
-def bench_blocked(*args, **kwargs) -> Dict:
-    """XLA vs the blocked backend on a large synthetic graph (not ported
-    yet: the blocked backend is ROADMAP item 5)."""
-    raise _not_ported("bench_blocked", "blocked")
+def _banded_graph(n_nodes: int, n_edges: int, bandwidth: int,
+                  seed: int) -> sp.csr_matrix:
+    """The synthetic banded graph of ``bench_ingest`` and
+    ``bench_blocked``: what a citation graph looks like after RCM."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, n_nodes, n_edges)
+    off = (rng.standard_normal(n_edges) * bandwidth).astype(np.int64)
+    src = np.clip(dst + off, 0, n_nodes - 1)
+    return sp.coo_matrix((np.ones(n_edges, np.float32), (dst, src)),
+                         shape=(n_nodes, n_nodes)).tocsr()
 
 
-def bench_scaling(*args, **kwargs) -> Dict:
-    """Strong scaling over a device mesh (not ported yet: the sharded
-    backend is ROADMAP item 6)."""
-    raise _not_ported("bench_scaling", "sharded")
+def bench_blocked(
+    n_nodes: int = 500_000,
+    n_edges: int = 5_000_000,
+    bandwidth: int = 2_000,
+    c: int = 128,
+    niter: int = 20,
+    iters: int = 3,
+    rows_per_block: int = 16384,
+    seed: int = 0,
+    device=None,
+) -> Dict:
+    """``xla`` against the blocked backend on a large synthetic graph.
+
+    At the default size H alone is n·c·4 = 256 MB. The graph is the
+    banded shape of ``bench_ingest``, so the blocks are cut without a
+    reorder (``reorder=None``), and built without the adjoint (eval
+    only), as the JAX bench does. A call is K eval steps:
+    ``blocked`` is ``n_blocks`` K1 launches a step, ``xla`` gather +
+    ``index_add_``. The JAX bench's ``geometry`` (the TPU packing) is
+    ``blocks`` here: the CSR plan's block count and window.
+    """
+    dev = resolve_device(device)
+    a_hat = _banded_graph(n_nodes, n_edges, bandwidth, seed)
+    a_hat.sum_duplicates()
+    nnz = int(a_hat.nnz)
+    bytes_per_step = nnz * 8 + 2 * n_nodes * c * 4
+    sol_step_s = bytes_per_step / HBM_BYTES_PER_S
+    result: Dict = {
+        "n": n_nodes, "nnz": nnz, "c": c, "niter": niter,
+        "bandwidth": bandwidth, "rows_per_block": rows_per_block,
+        "bytes_per_step": int(bytes_per_step),
+        "sol_step_us": sol_step_s * 1e6,
+        "device": _device_name(dev),
+        "backends": {},
+    }
+    h0 = torch.from_numpy(np.random.RandomState(seed).randn(n_nodes, c)
+                          .astype(np.float32)).to(dev)
+    for backend in ("xla", "blocked"):
+        if backend == "blocked":
+            bcsr = build_blocked_csr(a_hat, rows_per_block=rows_per_block,
+                                     reorder=None, with_adjoint=False,
+                                     device=dev)
+            result["blocks"] = {"n_blocks": bcsr.n_blocks, "hw": bcsr.hw}
+            prop = PPRPowerIteration(alpha=0.1, niter=niter,
+                                     backend="blocked", blocked=bcsr)
+        else:
+            prop = PPRPowerIteration(
+                alpha=0.1, niter=niter, backend="xla",
+                edges=edge_list_from_scipy(a_hat, device=dev))
+        with torch.no_grad():
+            t = _time(lambda h: prop.propagate(h, train=False), h0,
+                      iters=iters)
+        del prop
+        step_s = t / niter
+        result["backends"][backend] = {
+            "seconds_per_call": t,
+            "steps_per_s": 1.0 / step_s,
+            "effective_gbps": bytes_per_step / step_s / 1e9,
+            "fraction_of_sol": sol_step_s / step_s,
+        }
+        logger.info("%s: %.0f steps/s (%.1f ms/step, %.1f%% of SOL)",
+                    backend, 1 / step_s, step_s * 1e3,
+                    100 * sol_step_s / step_s)
+    b = result["backends"]
+    result["blocked_speedup"] = (b["blocked"]["steps_per_s"]
+                                 / b["xla"]["steps_per_s"])
+    return result
+
+
+def bench_scaling(
+    dataset: str = "pubmed",
+    c: int = 128,
+    niter: int = 10,
+    iters: int = 10,
+    n_shards_list: Optional[Sequence[int]] = None,
+    exchange: str = "alltoall",
+    seed: int = 0,
+    backend: str = "xla",
+    device=None,
+) -> Dict:
+    """Strong scaling of the sharded propagation over the process group.
+
+    For each n in ``n_shards_list`` (default {1, 2, world size}), the
+    first n ranks form a group and run K eval steps on a plan of n
+    shards; the other ranks wait at a barrier. The graph is relabelled by
+    RCM before it is partitioned (``load_graph`` with
+    ``shard_reorder="rcm"``). Efficiency at n = steps_per_s(n) /
+    (n·steps_per_s(1)). One card runs world size 1, the n = 1 entry.
+    """
+    dev = resolve_device(device)
+    world_mesh = make_mesh(device=dev)
+    world, me = world_mesh.world_size, world_mesh.rank
+    cfg = RunConfig(dataset=dataset, propagation="sharded",
+                    shard_reorder="rcm")
+    graph = load_graph(cfg)
+    a_hat = calc_A_hat(graph.adj_matrix)
+    alpha = resolve_alpha(cfg)
+    rng = np.random.RandomState(seed)
+    if n_shards_list is None:
+        n_shards_list = sorted({1, 2, world} & set(range(1, world + 1)))
+    result: Dict = {"dataset": dataset, "n": graph.num_nodes(),
+                    "nnz": int(a_hat.nnz), "c": c, "niter": niter,
+                    "exchange": exchange,
+                    "devices": [_device_name(world_mesh.device)] * world,
+                    "shards": {}}
+    base_sps = None
+    for ns in n_shards_list:
+        if ns > world:
+            continue
+        sg = build_sharded_graph(a_hat, n_shards=ns)
+        h0 = rng.randn(sg.n_pad, c).astype(np.float32)
+        # every rank makes the group; ranks past ns only wait for it
+        group = (world_mesh.group if ns == world
+                 else dist.new_group(ranks=list(range(ns))))
+        if me < ns:
+            mesh = Mesh(group=group, rank=dist.get_rank(group),
+                        world_size=ns, device=world_mesh.device)
+            csr = None
+            if backend == "pallas":
+                csr, = build_sharded_csr(sg, shards=[mesh.rank],
+                                         device=mesh.device,
+                                         with_adjoint=False)
+            prop = ShardedPowerIteration(graph=sg, mesh=mesh, csr=csr,
+                                         alpha=alpha, niter=niter,
+                                         exchange=exchange, backend=backend)
+            lo, hi = prop.row_range
+            with torch.no_grad():
+                t = _time(lambda h: prop(h, train=False),
+                          torch.from_numpy(h0[lo:hi]).to(mesh.device),
+                          iters=iters)
+            slowest = torch.tensor([t], dtype=torch.float64,
+                                   device=mesh.device)
+            dist.all_reduce(slowest, op=dist.ReduceOp.MAX, group=group)
+            t = float(slowest.item())
+            del prop
+        dist.barrier(group=world_mesh.group)
+        if ns != world:
+            dist.destroy_process_group(group)
+        if me >= ns:
+            continue
+        sps = niter / t
+        if base_sps is None:
+            base_sps = sps
+        result["shards"][ns] = {
+            "steps_per_s": sps,
+            "boundary_rows": sg.boundary,
+            # all_to_all per step: every shard sends its padded boundary
+            # block to each of ns peers, B·c·4 bytes per (src, dst) pair
+            "comm_bytes_per_step": ns * ns * sg.boundary * c * 4,
+            "interior_edge_fraction": (sg.interior_pad
+                                       / max(sg.edges_pad, 1)),
+            "efficiency": sps / (ns * base_sps),
+        }
+        logger.info("%d shards: %.0f steps/s (eff %.2f)", ns, sps,
+                    sps / (ns * base_sps))
+    return result
 
 
 def bench_training(
@@ -460,13 +625,7 @@ def bench_ingest(
     CSR of Aᵀ with its position map). Runs on the host alone; there is
     no native tier (``native_available`` is false).
     """
-    rng = np.random.default_rng(seed)
-    dst = rng.integers(0, n_nodes, n_edges)
-    off = (rng.standard_normal(n_edges) * bandwidth).astype(np.int64)
-    src = np.clip(dst + off, 0, n_nodes - 1)
-    mat = sp.coo_matrix((np.ones(n_edges, np.float32), (dst, src)),
-                        shape=(n_nodes, n_nodes)).tocsr()
-    del dst, src, off
+    mat = _banded_graph(n_nodes, n_edges, bandwidth, seed)
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
     csr = csr_from_scipy(mat, device=cpu)
@@ -488,9 +647,15 @@ def bench_retrieval(
     table_source: str = "trained",
     train_epochs: int = 50,
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict:
-    """Top-k retrieval throughput over the node-embedding table, single
-    device (``paths["single"]``; ROADMAP item 6 adds the sharded paths).
+    """Top-k retrieval throughput over the node-embedding table:
+    ``retrieve_topk`` on one device (``paths["single"]``), and over the
+    nd ranks of ``mesh`` (default: the process group, where one is up;
+    without either the sharded paths are left out)
+    ``retrieve_topk_sharded`` (replicated queries, ``sharded_{nd}dev``)
+    and ``retrieve_topk_qsharded`` (queries sharded, ``qsharded_{nd}dev``)
+    on the table padded to a multiple of 8·nd rows, this rank's rows.
 
     ``table_source="trained"`` trains ``train_epochs`` epochs on the
     ``xla`` arm at ``hidden=(d,)`` and takes the propagated hidden
@@ -533,6 +698,28 @@ def bench_retrieval(
         scores = q.double().cpu().numpy() @ table.double().cpu().numpy().T
         result["oracle_top1_agreement"] = float(
             np.mean(idx[:, 0].cpu().numpy() == scores.argmax(axis=1)))
+
+    if mesh is None:
+        if not dist.is_initialized():
+            return result
+        mesh = make_mesh(device=dev)
+    nd, me = mesh.world_size, mesh.rank
+    n_pad = ((n + nd * 8 - 1) // (nd * 8)) * nd * 8
+    rows = n_pad // nd
+    table_loc = torch.nn.functional.pad(
+        table, (0, 0, 0, n_pad - n))[me * rows:(me + 1) * rows]
+    t = _time(lambda qq: retrieve_topk_sharded(qq, table_loc, k=k,
+                                               mesh=mesh, n_valid=n),
+              q, iters=iters)
+    result["paths"][f"sharded_{nd}dev"] = {
+        "seconds": t, "queries_per_s": n_queries / t}
+    q_pad = n_queries - (n_queries % nd) or nd
+    q_rows = q_pad // nd
+    t = _time(lambda qq: retrieve_topk_qsharded(qq, table_loc, k=k,
+                                                mesh=mesh, n_valid=n),
+              q[me * q_rows:(me + 1) * q_rows], iters=iters)
+    result["paths"][f"qsharded_{nd}dev"] = {
+        "seconds": t, "queries_per_s": q_pad / t}
     return result
 
 

@@ -16,16 +16,22 @@ package's three backends:
   and the same mask in Âᵀ's order (``propagation.py:167-186``);
 - ``fused``: K3, all K steps in one launch (a band of rows per block,
   per-band ready flags between iterations), its backward K3's adjoint on
-  Âᵀ; in train mode with K planes per layout (``propagation.py:266-282``).
+  Âᵀ; in train mode with K planes per layout (``propagation.py:266-282``);
+- ``blocked``: K1 once per RCM row block per step, on the block's window
+  of H (``kernels/blocked.py``), H⁰ permuted and padded to ``n_pad`` rows
+  once; in train mode block b of step k draws from ``fold_in(keys[k],
+  b)``, each block's K planes of both layouts in one mask call
+  (``propagation.py:202-238``).
 
 The id-keyed planes of both layouts for all K steps come from one launch
 of the mask kernel (``kernels/masks.py``), computed ``val / keep`` first
 and then times (1-α), as the JAX package rounds them.
 
-The ``pallas`` and ``fused`` arms work in the operator's RCM order: H⁰ is
-permuted once before the loop and the result once after it, as the JAX
-package does (``propagation.py:140-147,197-199``). CSR needs no row
-padding, so unlike the PairChunks path nothing is padded.
+The ``pallas``, ``fused`` and ``blocked`` arms work in the operator's RCM
+order: H⁰ is permuted once before the loop and the result once after
+it, as the JAX package does (``propagation.py:140-147,197-199``). CSR
+needs no row padding, so unlike the PairChunks path nothing is padded,
+except on the blocked arm, whose plan pads to whole blocks.
 
 ``propagate_grouped`` is the seed-batched form
 (``propagation.py:305-397``): G seeds' H stacked along the lanes, each
@@ -44,6 +50,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ppnp_tpu_torch.kernels.blocked import (BlockedCsr, block_weights,
+                                            blocked_step)
 from ppnp_tpu_torch.kernels.fused import appnp_fused_grad
 from ppnp_tpu_torch.kernels.masks import edge_masks
 from ppnp_tpu_torch.kernels.spmm import spmm_grad, spmm_grad_grouped
@@ -53,7 +61,7 @@ from ppnp_tpu_torch.ops.sparse import CsrMatrix, EdgeList
 
 __all__ = ["spmm_edge_list", "PPRPowerIteration", "propagate_grouped"]
 
-BACKENDS = ("xla", "pallas", "fused")
+BACKENDS = ("xla", "pallas", "fused", "blocked")
 
 
 def spmm_edge_list(edges: EdgeList, h: torch.Tensor,
@@ -71,21 +79,25 @@ class PPRPowerIteration(nn.Module):
 
     ``edges`` serves the ``xla`` arm, ``csr`` (Â under the RCM
     permutation) and ``csr_t`` (the CSR of its transpose, the backward's
-    operator) the ``pallas`` and ``fused`` arms.
+    operator) the ``pallas`` and ``fused`` arms, ``blocked`` (the row
+    blocks of ``kernels/blocked.py``) the ``blocked`` arm.
     """
 
     def __init__(self, *, alpha: float = 0.1, niter: int = 10,
                  drop_prob: float = 0.5, backend: str = "xla",
                  edges: Optional[EdgeList] = None,
                  csr: Optional[CsrMatrix] = None,
-                 csr_t: Optional[CsrMatrix] = None):
+                 csr_t: Optional[CsrMatrix] = None,
+                 blocked: Optional[BlockedCsr] = None):
         super().__init__()
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; the port has "
                              f"{BACKENDS}")
         if backend == "xla" and edges is None:
             raise ValueError("backend 'xla' needs edges")
-        if backend != "xla" and (csr is None or csr_t is None):
+        if backend == "blocked" and blocked is None:
+            raise ValueError("backend 'blocked' needs blocked")
+        if backend in ("pallas", "fused") and (csr is None or csr_t is None):
             raise ValueError(f"backend {backend!r} needs csr and csr_t")
         self.alpha = float(alpha)
         self.niter = int(niter)
@@ -100,9 +112,15 @@ class PPRPowerIteration(nn.Module):
                          else ((1.0 - self.alpha) * csr.val).contiguous())
         self.w_t_scaled = (None if csr_t is None
                            else ((1.0 - self.alpha) * csr_t.val).contiguous())
+        self.blocked = blocked
+        # each block's (1-α)·val in both layouts, as one plane each
+        self.block_w_scaled = (None if blocked is None else block_weights(
+            blocked, scale=1.0 - self.alpha))
 
     @property
     def device(self) -> torch.device:
+        if self.blocked is not None:
+            return self.blocked.device
         return (self.edges.w if self.edges is not None
                 else self.csr.val).device
 
@@ -125,6 +143,8 @@ class PPRPowerIteration(nn.Module):
                 h = one_minus_alpha * spmm_edge_list(self.edges, h, w) \
                     + alpha_h0
             return h
+        if self.backend == "blocked":
+            return self._propagate_blocked(h0, keys)
         a, a_t = self.csr, self.csr_t
         hp = h0.index_select(0, a.perm) if a.perm is not None else h0
         hp = hp.contiguous()
@@ -146,6 +166,25 @@ class PPRPowerIteration(nn.Module):
                           else (self.w_scaled, self.w_t_scaled))
                 hp = spmm_grad(a, a_t, hp, w, w_t, init)
         return hp.index_select(0, a.iperm) if a.iperm is not None else hp
+
+    def _propagate_blocked(self, h0: torch.Tensor, keys) -> torch.Tensor:
+        """K blocked steps: permute and pad H⁰ once, ``init = α·hp``,
+        then unpad and un-permute the result."""
+        bcsr = self.blocked
+        n = h0.shape[0]
+        hp = h0.index_select(0, bcsr.perm) if bcsr.perm is not None else h0
+        hp = torch.nn.functional.pad(hp, (0, 0, 0, bcsr.n_pad - n))
+        init = self.alpha * hp  # α·H⁰, padded, packed order
+        planes = (self.block_w_scaled if keys is None else block_weights(
+            bcsr, keys, self.drop_prob, 1.0 - self.alpha))
+        for k in range(self.niter):
+            j = 0 if keys is None else k
+            hp = blocked_step(bcsr, hp, init, [w[j] for w, _ in planes],
+                              [None if w_t is None else w_t[j]
+                               for _, w_t in planes])
+        hp = hp[:n]
+        return hp.index_select(0, bcsr.iperm) if bcsr.iperm is not None \
+            else hp
 
     def forward(self, h_local: torch.Tensor,
                 idx: Optional[torch.Tensor] = None, *, key=None,
@@ -172,9 +211,9 @@ def propagate_grouped(prop: PPRPowerIteration, h0: torch.Tensor, keys=None,
     apply_drop = bool(train and prop.drop_prob > 0.0 and keys is not None)
     if not apply_drop:
         return prop.propagate(h0, train=False)
-    if prop.backend == "fused":
+    if prop.backend not in ("pallas", "xla"):
         raise NotImplementedError(
-            "grouped train-mode propagation: backend 'fused' "
+            f"grouped train-mode propagation: backend {prop.backend!r} "
             "(use 'pallas' or 'xla')")
     keys = np.asarray(keys, dtype=np.uint32).reshape(groups, 2)
     # (G, K, 2) -> (K, G, 2): step k's G keys are rows [k·G, (k+1)·G)

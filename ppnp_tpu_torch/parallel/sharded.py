@@ -1,0 +1,278 @@
+"""Row-sharded APPNP power iteration over ``torch.distributed``.
+
+Counterpart of ``ppnp_tpu/parallel/sharded.py`` (``:37-258``). Each
+power-iteration step is (1) the boundary-row exchange, an
+``all_to_all`` of the precomputed send lists (or an ``all_gather`` of
+H), then (2) the local SpMM over the shard's edges, split at the plan's
+``interior_pad`` into the interior edges, which read only local rows,
+and the boundary edges, which read the received rows, then (3) the
+α-mix with the local rows of H⁰. Two arms:
+
+- ``xla``: gather + ``index_add_`` over the padded per-shard edge arrays,
+  with either exchange; in train mode the step mask of step k is the
+  slot-keyed ``dropout`` of the shard's padded ``[interior | boundary]``
+  weights from ``fold_in(keys[k], rank)`` (``sharded.py:93-97``);
+- ``pallas``: K1 on the interior operator with ``init = α·H⁰_loc``, then
+  K1 on the boundary operator over the received rows chained through
+  ``init`` (``sharded.py:225-228``), with (1-α) folded into the weights;
+  the backward runs K1 on both transposes. In train mode the id-keyed
+  planes of the interior and boundary parts come from
+  ``fold_in(fold_in(keys[k], rank), 0 or 1)`` (``:210-214``), the K
+  planes of both layouts of a part in one mask call. It requires the
+  ``alltoall`` exchange, as in JAX.
+
+Gradients flow through the exchange: ``all_to_all`` is its own adjoint,
+and the adjoint of the tiled ``all_gather`` sums every rank's cotangent
+of this rank's rows (an ``all_to_all`` and a sum; gloo has no
+reduce-scatter).
+
+One process is one shard. Rank r holds its rows ``[r·S, (r+1)·S)`` of
+H⁰ (``row_range``) and gets the same rows of the result: there is no
+``input_sharding``, because there is no global array to place. The
+caller supplies the rank's rows, zero-padded at the tail of the last
+shard up to ``n_rows`` = ``n_pad`` in all.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from ppnp_tpu_torch.kernels.masks import edge_masks
+from ppnp_tpu_torch.kernels.spmm import spmm_csr, spmm_grad
+from ppnp_tpu_torch.ops import prng
+from ppnp_tpu_torch.ops.dropout import dropout_grouped
+from ppnp_tpu_torch.parallel.mesh import Mesh
+from ppnp_tpu_torch.parallel.partition import ShardCsr, ShardedGraph
+
+__all__ = ["ShardedPowerIteration", "all_to_all", "all_gather_rows"]
+
+EXCHANGES = ("alltoall", "allgather")
+
+
+class _AllToAll(torch.autograd.Function):
+    """Chunk e of dim 0 goes to rank e; chunk o of the result came from
+    rank o. Its own adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """Every rank's rows, concatenated in rank order (a tiled
+    ``all_gather`` along dim 0)."""
+
+    @staticmethod
+    def forward(ctx, x, group, world):
+        ctx.group, ctx.world = group, world
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        recv = torch.empty_like(g)
+        dist.all_to_all_single(recv, g.contiguous(), group=ctx.group)
+        return recv.view(ctx.world, -1, *g.shape[1:]).sum(0), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Differentiable ``all_to_all`` of equal chunks along dim 0."""
+    return _AllToAll.apply(x, mesh.group)
+
+
+def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Differentiable tiled ``all_gather``: (world·rows, ...)."""
+    return _AllGatherRows.apply(x, mesh.group, mesh.world_size)
+
+
+def _segsum(gathered: torch.Tensor, w: torch.Tensor, dst: torch.Tensor,
+            rows: int) -> torch.Tensor:
+    return gathered.new_zeros((rows, gathered.shape[1])).index_add_(
+        0, dst, gathered * w[:, None])
+
+
+def _k1(a, a_t, h, w, w_t, init):
+    """K1, differentiable where the transpose was built."""
+    if a_t is None:
+        return spmm_csr(a, h, w, init)
+    return spmm_grad(a, a_t, h, w, w_t, init)
+
+
+class ShardedPowerIteration(nn.Module):
+    """K sharded steps of H ← (1-α)ÂH + αH⁰ with a boundary exchange, on
+    this rank's rows (module docstring).
+
+    ``graph`` is the whole plan (``partition.build_sharded_graph``), of
+    which this rank keeps its own slice on ``mesh.device``; ``csr`` is
+    this rank's ``ShardCsr`` (``partition.build_sharded_csr``), needed by
+    the ``pallas`` arm.
+    """
+
+    def __init__(self, *, graph: ShardedGraph, mesh: Mesh,
+                 csr: Optional[ShardCsr] = None, alpha: float = 0.1,
+                 niter: int = 10, drop_prob: float = 0.5,
+                 exchange: str = "alltoall", backend: str = "xla"):
+        super().__init__()
+        if backend not in ("xla", "pallas"):
+            raise ValueError(f"sharded propagation has the 'xla' and "
+                             f"'pallas' arms, not {backend!r}")
+        if exchange not in EXCHANGES:
+            raise ValueError(f"unknown exchange {exchange!r}")
+        if backend == "pallas" and exchange != "alltoall":
+            raise ValueError("pallas sharded propagation requires "
+                             "exchange='alltoall'")
+        if backend == "pallas" and csr is None:
+            raise ValueError("backend='pallas' requires this rank's "
+                             "operators (partition.build_sharded_csr)")
+        if graph.n_shards != mesh.world_size:
+            raise ValueError(f"a plan of {graph.n_shards} shards on a mesh "
+                             f"of {mesh.world_size} ranks")
+        self.graph, self.mesh, self.csr = graph, mesh, csr
+        self.alpha, self.niter = float(alpha), int(niter)
+        self.drop_prob = float(drop_prob)
+        self.exchange, self.backend = exchange, backend
+        me, dev = mesh.rank, mesh.device
+
+        def rank_slice(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a[me])).to(
+                dtype).to(dev)
+
+        self.dst = rank_slice(graph.dst, torch.int64)
+        self.src = rank_slice(graph.src, torch.int64)
+        self.src_global = rank_slice(graph.src_global, torch.int64)
+        self.w = rank_slice(graph.w, torch.float32)
+        self.send_idx = rank_slice(graph.send_idx, torch.int64).view(-1)
+        self.w_scaled = None
+        if csr is not None:
+            # (1-α)·val of each part in both layouts: every eval step's
+            # weights
+            self.w_scaled = tuple(
+                None if m is None else ((1.0 - self.alpha) * m.val)
+                .contiguous()
+                for m in (csr.interior, csr.interior_t, csr.boundary,
+                          csr.boundary_t))
+
+    @property
+    def n_rows(self) -> int:
+        """The padded row count of H⁰ over all ranks."""
+        return self.graph.n_pad
+
+    @property
+    def row_range(self) -> Tuple[int, int]:
+        """The rows ``[lo, hi)`` of H⁰ and of the result this rank
+        holds."""
+        s = self.graph.shard_rows
+        return self.mesh.rank * s, (self.mesh.rank + 1) * s
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    def _exchange(self, h: torch.Tensor) -> torch.Tensor:
+        """The received rows, (n_shards·B, c): shard o's block at rows
+        ``[o·B, (o+1)·B)``."""
+        g = self.graph
+        send = h.index_select(0, self.send_idx)
+        return all_to_all(send, self.mesh).view(g.n_shards * g.boundary,
+                                                h.shape[1])
+
+    def step_weights(self, keys=None):
+        """The weights of every step. ``xla``: (K, E) slot-keyed planes
+        of this rank's padded edge weights, ``dropout(fold_in(keys[k],
+        rank), w)``, or ``w`` itself as one plane without ``keys``.
+        ``pallas``: ((interior, interior_t), (boundary, boundary_t))
+        planes of ``scale·(val/keep)`` from ``fold_in(fold_in(keys[k],
+        rank), 0 or 1)``, or (1-α)·val as one plane each."""
+        me = self.mesh.rank
+        if self.backend == "xla":
+            if keys is None:
+                return self.w[None]
+            # decorrelate shards: each owns a disjoint edge set
+            return dropout_grouped(
+                np.stack([prng.fold_in(k, me) for k in keys]), self.w,
+                self.drop_prob, shared=True)
+        csr = self.csr
+        if keys is None:
+            return tuple((None if w is None else w[None],
+                          None if w_t is None else w_t[None])
+                         for w, w_t in (self.w_scaled[:2],
+                                        self.w_scaled[2:]))
+        k_me = [prng.fold_in(k, me) for k in keys]
+        # decorrelate the two parts: their per-matrix ids overlap
+        return tuple(
+            edge_masks(np.stack([prng.fold_in(k, p) for k in k_me]), a,
+                       a_t, keep=1.0 - self.drop_prob,
+                       scale=1.0 - self.alpha)
+            for p, (a, a_t) in enumerate(((csr.interior, csr.interior_t),
+                                          (csr.boundary, csr.boundary_t))))
+
+    def propagate(self, h0: torch.Tensor, *, key=None,
+                  train: bool = False) -> torch.Tensor:
+        """K steps over this rank's (S, c) rows of H⁰; in train mode with
+        fresh masks per step from ``key`` (a (2,) uint32 host key)."""
+        g = self.graph
+        if tuple(h0.shape[:1]) != (g.shard_rows,):
+            raise ValueError(f"sharded propagation: this rank holds "
+                             f"{g.shard_rows} rows, got {h0.shape[0]}")
+        apply_drop = bool(train and self.drop_prob > 0.0 and key is not None)
+        keys = prng.split(key, self.niter) if apply_drop else None
+        ws = self.step_weights(keys)
+        if self.backend == "pallas":
+            return self._propagate_pallas(h0, ws, apply_drop)
+        s, ip = g.shard_rows, g.interior_pad
+        dst_i, dst_b = self.dst[:ip], self.dst[ip:]
+        src_i = self.src[:ip]
+        alpha_h0 = self.alpha * h0
+        h = h0
+        for k in range(self.niter):
+            w = ws[k if apply_drop else 0]
+            out = _segsum(h.index_select(0, src_i), w[:ip], dst_i, s)
+            if self.exchange == "allgather":
+                table = all_gather_rows(h, self.mesh)
+                rows = table.index_select(0, self.src_global[ip:])
+            else:
+                rows = self._exchange(h).index_select(0,
+                                                      self.src[ip:] - s)
+            out = out + _segsum(rows, w[ip:], dst_b, s)
+            h = (1.0 - self.alpha) * out + alpha_h0
+        return h
+
+    def _propagate_pallas(self, h0: torch.Tensor, ws,
+                          apply_drop: bool) -> torch.Tensor:
+        csr = self.csr
+        (p_i, p_i_t), (p_b, p_b_t) = ws
+        init = self.alpha * h0  # α·H⁰_loc seeds the interior step
+        h = h0.contiguous()
+        for k in range(self.niter):
+            j = k if apply_drop else 0
+            recv = self._exchange(h)
+            out = _k1(csr.interior, csr.interior_t, h, p_i[j],
+                      None if p_i_t is None else p_i_t[j], init)
+            h = _k1(csr.boundary, csr.boundary_t, recv, p_b[j],
+                    None if p_b_t is None else p_b_t[j], out)
+        return h
+
+    def forward(self, h_local: torch.Tensor,
+                idx: Optional[torch.Tensor] = None, *, key=None,
+                train: bool = False) -> torch.Tensor:
+        """Propagate this rank's rows; with ``idx`` (global row ids) the
+        rows of ``idx`` of the whole result, gathered to every rank."""
+        h = self.propagate(h_local, key=key, train=train)
+        if idx is not None:
+            h = all_gather_rows(h, self.mesh).index_select(0, idx)
+        return h

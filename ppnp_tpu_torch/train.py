@@ -52,17 +52,25 @@ from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.ops.sparse import csr_from_scipy, csr_transpose
 from ppnp_tpu_torch.ops.sparse_input import SparseInput
 from ppnp_tpu_torch.optim import Adam
+from ppnp_tpu_torch.parallel.mesh import ITEM_6
+from ppnp_tpu_torch.parallel.sharded import (ShardedPowerIteration,
+                                             all_gather_rows)
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["train_model", "get_predictions", "prepare_attr_input",
-           "default_idx_split_args", "BF16_TODO", "PROFILE_TODO"]
+           "default_idx_split_args", "BF16_TODO", "PROFILE_TODO",
+           "SHARDED_TRAIN_TODO", "SHARDED_SPARSE_TODO"]
 
 BF16_TODO = ("x_dtype=bfloat16 is not ported yet (ROADMAP.md, \"Still to "
              "port\", item 7: bfloat16 attributes)")
 PROFILE_TODO = ("profile_dir / --profile is not ported yet (ROADMAP.md, "
                 "\"Still to port\", item 8: TensorBoard metrics and "
                 "profiler traces)")
+SHARDED_TRAIN_TODO = ("training with a sharded propagator is not ported "
+                      f"yet ({ITEM_6})")
+SHARDED_SPARSE_TODO = ("x_format='sparse' under sharding (the row-sharded "
+                       f"ShardedSparseInput) is not ported yet ({ITEM_6})")
 
 default_idx_split_args: Dict[str, int] = {
     "ntrain_per_class": 20,
@@ -88,26 +96,40 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
     ms_academic (n·f = 124.7 M at 0.12 % density).
 
     ``x_dtype``: ``None``/float32 only; bfloat16 raises for now.
+
+    A sharded propagator gets this rank's rows of X, dense, zero-padded
+    at the tail to the plan's ``n_pad`` rows (``ShardedPowerIteration.
+    row_range``): "auto" picks dense there, as the JAX rule does, and
+    "sparse" raises until the row-sharded sparse fc1 is ported.
     """
     if x_dtype not in (None, "float32", torch.float32):
         raise NotImplementedError(BF16_TODO)
     attr_norm = preprocessing.normalize_attributes(graph.attr_matrix)
     device = propagator.device
+    sharded = isinstance(propagator, ShardedPowerIteration)
     n, f = attr_norm.shape
     if x_format == "auto":
-        use_sparse = (sp.issparse(attr_norm) and n * f >= 16_000_000
+        use_sparse = (sp.issparse(attr_norm) and not sharded
+                      and n * f >= 16_000_000
                       and attr_norm.nnz <= 0.05 * n * f)
     elif x_format in ("dense", "sparse"):
         use_sparse = x_format == "sparse"
     else:
         raise ValueError(f"unknown x_format {x_format!r} "
                          "(expected 'auto', 'dense' or 'sparse')")
+    if use_sparse and sharded:
+        raise NotImplementedError(SHARDED_SPARSE_TODO)
     if use_sparse:
         csr = csr_from_scipy(attr_norm, device=device)
         return SparseInput(csr=csr, csr_t=csr_transpose(csr))
+    if sharded:
+        lo, hi = propagator.row_range
+        attr_norm = attr_norm[lo:min(hi, n)]
     x_np = (np.asarray(attr_norm.todense(), dtype=np.float32)
             if sp.issparse(attr_norm)
             else np.asarray(attr_norm, dtype=np.float32))
+    if sharded:
+        x_np = np.pad(x_np, ((0, hi - lo - x_np.shape[0]), (0, 0)))
     return torch.from_numpy(x_np).to(device)
 
 
@@ -137,7 +159,9 @@ def _check_prepared_input(x, graph: SparseGraph, *, x_format: str,
 
 
 def get_predictions(model: MLP, x, propagator) -> np.ndarray:
-    """Argmax class predictions for all nodes (eval mode).
+    """Argmax class predictions for all nodes (eval mode); under a
+    sharded propagator every rank gets all ``n_pad`` rows' predictions
+    (the caller keeps the first n).
 
     Dense fc1 runs in full float32: TF32 matmuls are switched off here
     (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default)
@@ -146,7 +170,10 @@ def get_predictions(model: MLP, x, propagator) -> np.ndarray:
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
         logp = ppnp_forward(model, x, propagator, None, train=False)
-        return logp.argmax(dim=-1).cpu().numpy()
+        preds = logp.argmax(dim=-1)
+        if isinstance(propagator, ShardedPowerIteration):
+            preds = all_gather_rows(preds, propagator.mesh)
+        return preds.cpu().numpy()
 
 
 def _mean(x: torch.Tensor) -> torch.Tensor:
@@ -201,6 +228,8 @@ def train_model(
     """
     if profile_dir is not None:
         raise NotImplementedError(PROFILE_TODO)
+    if isinstance(propagator, ShardedPowerIteration):
+        raise NotImplementedError(SHARDED_TRAIN_TODO)
     if dtype not in (None, torch.float32):
         raise NotImplementedError(BF16_TODO)
     torch.backends.cuda.matmul.allow_tf32 = False

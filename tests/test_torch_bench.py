@@ -1,23 +1,28 @@
-"""The port's single-device benches against the JAX package's, on the CPU.
+"""The port's benches against the JAX package's, on the CPU.
 
 Each bench runs at a tiny size with ``device="cpu"`` (the kernels' plain
 versions; its times say nothing of the card) beside the JAX bench on its
-``xla`` arm, and returns the JAX bench's keys, minus what this port drops
-(the TPU pair-chunk issue model, Newton–Schulz, the C++ packer and the
-sharded retrieval paths), with ``layout`` naming the CSR operator. Where
-both compute the same quantity from the same inputs (sizes, bytes, the
-exact solve's residual, the training run's accuracy), it agrees. The
-parts that wait for the blocked, sharded, bfloat16 and profiler ports
-raise, naming their ROADMAP item.
+``xla`` arm (the blocked bench: both arms, JAX's Pallas kernel in
+interpret mode at a reduced geometry), and returns the JAX bench's keys,
+minus what this port drops (the TPU pair-chunk issue model and geometry,
+Newton–Schulz, the C++ packer), with ``layout`` naming the CSR operator.
+The sharded paths run in this process at world size 1 (a gloo group of
+one rank; ``test_torch_sharded.py`` runs them over 2 ranks). Where both
+compute the same quantity from the same inputs (sizes, bytes, the plan,
+the exact solve's residual, the training run's accuracy), it agrees. The
+parts that wait for sharded training, bfloat16 X and the profiler raise,
+naming their ROADMAP item.
 """
 
 import contextlib
+import functools
 import io
 import json
 
 import pytest
 
 from ppnp_tpu import benchmarks as jb
+from ppnp_tpu.kernels import blocked as j_blocked
 from ppnp_tpu_torch import benchmarks as tb
 from ppnp_tpu_torch.__main__ import main as t_main
 from ppnp_tpu_torch.data.io import save_to_npz
@@ -165,14 +170,33 @@ def test_ingest_matches_jax_keys():
 
 @pytest.mark.parametrize("source", ["trained", "random"])
 def test_retrieval_matches_jax_keys(sbm800, source):
-    """The single-device path; the sharded paths are ROADMAP item 6."""
+    """The single-device path and the two sharded paths, each named by
+    its device count (the JAX bench runs on the 8-device CPU mesh, this
+    process is one rank of the mesh it is given). Without a mesh it
+    starts no process group: the sharded paths run only where one is
+    up."""
+    import torch.distributed as dist
+
+    from ppnp_tpu_torch.parallel.mesh import make_mesh
+
     kw = dict(dataset=sbm800, d=8, n_queries=16, iters=1,
               table_source=source, train_epochs=2)
+    was_up = dist.is_initialized()
+    alone = tb.bench_retrieval(device=CPU, **kw)
+    assert dist.is_initialized() == was_up
+    assert set(alone["paths"]) == ({"single", "sharded_1dev",
+                                    "qsharded_1dev"} if was_up
+                                   else {"single"})
     want = jb.bench_retrieval(**kw)
-    got = tb.bench_retrieval(device=CPU, **kw)
+    got = tb.bench_retrieval(device=CPU, mesh=make_mesh(device=CPU), **kw)
     assert set(got) == set(want)
-    assert set(got["paths"]) == {"single"}
-    assert _keys(got["paths"]["single"]) == _keys(want["paths"]["single"])
+    assert set(want["paths"]) == {"single", "sharded_8dev", "qsharded_8dev"}
+    assert set(got["paths"]) == {"single", "sharded_1dev", "qsharded_1dev"}
+    for path in ("single", "sharded", "qsharded"):
+        name = path if path == "single" else f"{path}_1dev"
+        jname = path if path == "single" else f"{path}_8dev"
+        assert _keys(got["paths"][name]) == _keys(want["paths"][jname])
+        assert _positive(got["paths"][name])
     if source == "trained":
         assert got["train"]["epochs"] == 2
         assert got["oracle_top1_agreement"] == 1.0
@@ -189,6 +213,55 @@ def test_serving_matches_jax_keys(sbm800, jax_bench, backend):
     assert _positive(entry)
     assert (entry["latency_ms_min"] <= entry["latency_ms_p50"]
             <= entry["latency_ms_p99"])
+
+
+def test_blocked_matches_jax(monkeypatch):
+    """``bench_blocked`` on both arms at a tiny size: the JAX bench's keys
+    (its TPU ``geometry`` is the CSR plan's ``blocks``), the same graph
+    and bytes."""
+    kw = dict(n_nodes=3000, n_edges=20000, bandwidth=50, c=8, niter=2,
+              iters=1, rows_per_block=1024)
+    monkeypatch.setattr(j_blocked, "build_blocked_pair_chunks",
+                        functools.partial(j_blocked.build_blocked_pair_chunks,
+                                          window=128, window_src=128,
+                                          chunk=8, seg_per_mid=2,
+                                          mids_per_step=1,
+                                          use_native="never"))
+    want = jb.bench_blocked(**kw)
+    got = tb.bench_blocked(device=CPU, **kw)
+    assert set(got) == set(want) - {"geometry"} | {"blocks"}
+    assert set(got["backends"]) == set(want["backends"]) == {"xla",
+                                                              "blocked"}
+    for b in ("xla", "blocked"):
+        assert _keys(got["backends"][b]) == _keys(want["backends"][b])
+        assert _positive(got["backends"][b])
+    for k in ("n", "nnz", "c", "niter", "bandwidth", "rows_per_block",
+              "bytes_per_step"):
+        assert got[k] == want[k], k
+    assert got["sol_step_us"] == pytest.approx(
+        got["bytes_per_step"] / 3.35e12 * 1e6)
+    assert got["blocks"]["n_blocks"] == 3
+    assert got["blocked_speedup"] > 0
+
+
+def test_scaling_matches_jax(sbm800):
+    """``bench_scaling`` at world size 1 (the n = 1 entry) against the
+    JAX bench's n = 1 entry on the same RCM-relabelled plan."""
+    kw = dict(dataset=sbm800, c=8, niter=2, iters=1)
+    want = jb.bench_scaling(n_shards_list=[1], **kw)
+    got = tb.bench_scaling(device=CPU, **kw)
+    assert set(got) == set(want)
+    assert set(got["shards"]) == set(want["shards"]) == {1}
+    row, jrow = got["shards"][1], want["shards"][1]
+    assert set(row) == set(jrow)
+    for k in ("boundary_rows", "comm_bytes_per_step",
+              "interior_edge_fraction", "efficiency"):
+        assert row[k] == jrow[k], k
+    for k in ("dataset", "n", "nnz", "c", "niter", "exchange"):
+        assert got[k] == want[k], k
+    assert row["steps_per_s"] > 0 and got["devices"] == ["cpu"]
+    got = tb.bench_scaling(device=CPU, backend="pallas", **kw)
+    assert got["shards"][1]["boundary_rows"] == jrow["boundary_rows"]
 
 
 def _bench_cli(argv):
@@ -211,21 +284,31 @@ def test_bench_cli_on_the_cpu(sbm800):
 
 
 def test_not_ported_parts_raise(sbm800):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tb.bench_propagation(dataset=sbm800, backends=("blocked",),
-                             device=CPU)
+    """What still raises, naming its ROADMAP item: sharded training
+    (item 6), bfloat16 X (item 7), ``--profile`` (item 8); ``--layout``
+    is not a flag of the port's ``bench``. The blocked backend, ``bench
+    --blocked-scale`` and ``bench --scaling`` run."""
+    res = tb.bench_propagation(dataset=sbm800, c=4, niter=2, iters=1,
+                               backends=("blocked",), device=CPU)
+    assert res["backends"]["blocked"]["steps_per_s"] > 0
     with pytest.raises(NotImplementedError, match="item 6"):
         tb.bench_training(dataset=sbm800, propagation="sharded",
                           device=CPU)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        t_main(["bench", "--dataset", sbm800, "--training",
+                "--propagation", "sharded", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 7"):
         tb.bench_training(dataset=sbm800, x_dtype="bfloat16", device=CPU)
     with pytest.raises(NotImplementedError, match="item 7"):
         tb.bench_training_breakdown(dataset=sbm800, x_dtype="bfloat16",
                                     device=CPU)
-    for flag, item in (("--scaling", "item 6"), ("--blocked-scale",
-                                                 "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_main(["bench", "--dataset", sbm800, flag, "--device", "cpu"])
+    res = _bench_cli(["--dataset", sbm800, "--scaling", "--c", "4",
+                      "--niter", "2", "--iters", "1", "--device", "cpu"])
+    assert set(res["shards"]) == {"1"}
+    res = _bench_cli(["--blocked-scale", "--blocked-nodes", "2000", "--c",
+                      "4", "--niter", "2", "--iters", "1", "--device",
+                      "cpu"])
+    assert set(res["backends"]) == {"xla", "blocked"}
     with pytest.raises(NotImplementedError, match="item 8"):
         t_main(["bench", "--dataset", sbm800, "--profile", "trace",
                 "--device", "cpu"])

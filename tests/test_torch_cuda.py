@@ -530,3 +530,125 @@ def test_embedding_table_on_the_card_matches_the_cpu(dev, backend, level):
         model = init_mlp_params(300, [64], 5, key=prng.PRNGKey(0), device=dev)
         assert torch.equal(tables[1], build_embedding_table(model, x, prop,
                                                             level=level))
+
+
+@pytest.mark.parametrize("c", [15, 64])
+@pytest.mark.parametrize("offset", [8, 1000])
+def test_spmm_on_a_window_view(dev, c, offset):
+    """K1 on a contiguous row view of H with a non-zero storage offset
+    (the blocked arm's window): the same bits as on a copy of the view,
+    and the launch shape chosen by the operator's rows, not H's."""
+    a = _matrix(4000, 1500, 0.003, c)
+    csr = csr_from_scipy(a, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(offset)
+    h = torch.randn(offset + 1500 + 77, c, device=dev, generator=gen)
+    init = torch.randn(3 * 4000, c, device=dev, generator=gen)
+    view, init_view = h[offset:offset + 1500], init[4000:8000]
+    assert view.storage_offset() > 0 and view.is_contiguous()
+    out = _twice_equal(lambda: spmm_csr(csr, view, None, init_view))
+    assert torch.equal(out, spmm_csr(csr, view.clone(), None,
+                                     init_view.clone()))
+    torch.testing.assert_close(out, spmm_csr_plain(csr, view, None,
+                                                   init_view), **TOL)
+
+
+def test_blocked_masks_and_step_on_the_card_match_the_cpu(dev):
+    """The blocked arm: every block's K planes of both layouts bit-equal
+    to the CPU's, and K train-mode blocked steps and their gradient
+    within the tolerance of the CPU's (K1 per block, backward per
+    block's transpose)."""
+    from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
+    from ppnp_tpu_torch.kernels.blocked import block_weights, build_blocked_csr
+    from ppnp_tpu_torch.ops.normalize import calc_A_hat
+    from ppnp_tpu_torch.ops.propagation import PPRPowerIteration
+
+    graph = make_attributed_sbm(n_nodes=5000, n_classes=5, n_features=30,
+                                n_edges=25000, seed=6).standardize()
+    a_hat = calc_A_hat(graph.adj_matrix)
+    keys = prng.split(prng.PRNGKey(3), 10)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        bcsr = build_blocked_csr(a_hat, rows_per_block=2048, device=d)
+        planes = block_weights(bcsr, keys, 0.5, scale=0.9)
+        prop = PPRPowerIteration(alpha=0.1, niter=10, backend="blocked",
+                                 blocked=bcsr)
+        h = torch.from_numpy(np.random.RandomState(0).randn(
+            bcsr.n_rows, 15).astype(np.float32)).to(d).requires_grad_()
+        build.reset_launches()
+        z = prop(h, key=prng.PRNGKey(9), train=True)
+        (z ** 2).sum().backward()
+        out.append((planes, z.detach(), h.grad, dict(build.LAUNCHES)))
+    (p_cpu, z_cpu, g_cpu, _), (p_dev, z_dev, g_dev, launches) = out
+    assert bcsr.n_blocks == 3
+    for (w, w_t), (v, v_t) in zip(p_cpu, p_dev):
+        assert torch.equal(v.cpu(), w) and torch.equal(v_t.cpu(), w_t)
+    assert launches["spmm_csr"] == launches["spmm_csr_bwd"] == 3 * 10
+    assert launches["edge_masks"] == 3
+    torch.testing.assert_close(z_dev.cpu(), z_cpu, **TOL)
+    torch.testing.assert_close(g_dev.cpu(), g_cpu, rtol=1e-4, atol=1e-5)
+
+
+_NCCL_WORLD_ONE = r"""
+import numpy as np, torch, torch.distributed as dist
+from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
+from ppnp_tpu_torch.kernels import build
+from ppnp_tpu_torch.ops import prng
+from ppnp_tpu_torch.ops.normalize import calc_A_hat
+from ppnp_tpu_torch.parallel.health import heartbeat
+from ppnp_tpu_torch.parallel.mesh import Mesh, make_mesh
+from ppnp_tpu_torch.parallel.partition import (build_sharded_csr,
+                                               build_sharded_graph)
+from ppnp_tpu_torch.parallel.sharded import ShardedPowerIteration
+
+mesh = make_mesh(device="cuda")
+assert dist.get_backend() == "nccl" and mesh.world_size == 1
+cpu = torch.device("cpu")
+cpu_mesh = Mesh(group=dist.new_group(ranks=[0], backend="gloo"), rank=0,
+                world_size=1, device=cpu)
+graph = make_attributed_sbm(n_nodes=4000, n_classes=5, n_features=30,
+                            n_edges=20000, seed=2).standardize()
+sg = build_sharded_graph(calc_A_hat(graph.adj_matrix), 1)
+h0 = np.random.RandomState(0).randn(sg.n_pad, 15).astype(np.float32)
+for backend in ("xla", "pallas"):
+    res = []
+    for m in (cpu_mesh, mesh):
+        csr, = build_sharded_csr(sg, device=m.device)
+        prop = ShardedPowerIteration(graph=sg, mesh=m, csr=csr, alpha=0.1,
+                                     niter=10, drop_prob=0.5,
+                                     backend=backend)
+        h = torch.from_numpy(h0).to(m.device).requires_grad_()
+        build.reset_launches()
+        z = prop(h, key=prng.PRNGKey(5), train=True)
+        (z ** 2).sum().backward()
+        with torch.no_grad():
+            ev = prop(h)
+        res.append((z.detach().cpu(), h.grad.cpu(), ev.cpu(),
+                    dict(build.LAUNCHES)))
+    (z0, g0, e0, _), (z1, g1, e1, launches) = res
+    torch.testing.assert_close(z1, z0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(e1, e0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-5)
+    if backend == "pallas":
+        assert launches["spmm_csr"] == 2 * 20, launches
+        assert launches["spmm_csr_bwd"] == 20, launches
+assert heartbeat(mesh, timeout_s=30) < 30
+dist.destroy_process_group()
+print("nccl world size 1: ok")
+"""
+
+
+def test_sharded_world_size_one_on_nccl_matches_the_cpu(dev):
+    """A world-size-1 NCCL group: ``ShardedPowerIteration`` on both arms
+    (train mode, its gradient through the exchange, eval) within the
+    tolerance of the same run over gloo on the CPU. In a process of its
+    own under a timeout, so that a collective that never ends fails the
+    test instead of hanging it."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _NCCL_WORLD_ONE], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "nccl world size 1: ok" in res.stdout

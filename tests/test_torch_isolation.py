@@ -43,8 +43,14 @@ _IMPORT_EVERYTHING = textwrap.dedent("""
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "ppnp_tpu"))
     assert not bad, bad
-    print(len(names))
+    print(" ".join(names))
 """)
+# the modules of the blocked backend and the sharded path, which must be
+# among those imported without jax
+_SLICE_5 = ("ppnp_tpu_torch.kernels.blocked", "ppnp_tpu_torch.parallel",
+            "ppnp_tpu_torch.parallel.mesh", "ppnp_tpu_torch.parallel.health",
+            "ppnp_tpu_torch.parallel.partition",
+            "ppnp_tpu_torch.parallel.sharded")
 
 
 def test_imports_neither_jax_nor_the_jax_package():
@@ -52,7 +58,9 @@ def test_imports_neither_jax_nor_the_jax_package():
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20  # every module was imported
+    names = res.stdout.split()
+    assert len(names) >= 25  # every module was imported
+    assert set(_SLICE_5) <= set(names)
 
 
 def test_sources_name_no_jax_import():

@@ -169,10 +169,23 @@ def test_retrieve_topk_matches_jax(n, d, nq, k, dups):
 
 
 def test_sharded_retrieval_raises():
-    q = torch.zeros(4, 3)
+    """Sharded retrieval runs (here at world size 1; over 2 and 4 gloo
+    ranks in ``test_torch_sharded.py``) and equals ``retrieve_topk``;
+    what of the sharded path still raises is the hierarchical mesh
+    (ROADMAP item 6)."""
+    from ppnp_tpu_torch.parallel.mesh import make_hier_mesh, make_mesh
+
+    rng = np.random.RandomState(4)
+    table = torch.from_numpy(rng.randn(40, 6).astype(np.float32))
+    q = torch.from_numpy(rng.randn(4, 6).astype(np.float32))
+    mesh = make_mesh(device="cpu")
+    want = retrieve_topk(q, table[:37], k=3)
     for fn in (retrieve_topk_sharded, retrieve_topk_qsharded):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn(q, q, 2, mesh=None)
+        s, i = fn(q, table, 3, mesh=mesh, n_valid=37)
+        torch.testing.assert_close(s, want[0])
+        assert torch.equal(i, want[1])
+    with pytest.raises(NotImplementedError, match="item 6"):
+        make_hier_mesh(2, 1)
 
 
 @pytest.fixture(scope="module")
