@@ -41,8 +41,14 @@ order; any failure exits non-zero and nothing is caught:
    shapes of the blocked arm (each block of the default plan, on H's
    window as a row view) and of an S = 4 row partition (each shard's
    interior and boundary operators, the received rows gathered from a
-   full H), the stitched blocked step bit-equal to one K1 launch on the
-   whole operator and the stitched sharded step within 1e-5 of it;
+   full H; each rank's row-sharded sparse fc1, X_r and X_rᵀ at hidden
+   64) and of a 2 × 2 hierarchical plan (each rank's ici and dcn
+   operators), the stitched blocked step bit-equal to one K1 launch on
+   the whole operator and the stitched sharded and hierarchical steps
+   within 1e-5 of it; the dense masks of sharded training: dense X at
+   world size 1, and a rank's rows of X and of the hidden layer drawn
+   from a nonzero row offset, bit-equal to the plain version and to
+   those rows of the offset-0 draw, and a draw across 2^32 words;
 4. serving: write a checkpoint of random weights from a seeded
    generator, then run ``python -m ppnp_tpu_torch predict`` in process
    through the xla, pallas and fused backends, several requests each;
@@ -88,10 +94,21 @@ order; any failure exits non-zero and nothing is caught:
    ``bench --scaling`` on the PubMed surrogate at c = 128 on both arms;
    ``retrieve_topk_sharded`` and ``_qsharded`` against ``retrieve_topk``
    on a hidden table built sharded;
-12. print one ``{"kernels": [...]}`` line (launches per path, the
+12. sharded training, world size 1 on NCCL: ``train --propagation
+   sharded`` on the pallas arm with sparse X (``ShardedSparseInput``)
+   and with dense X (20 epochs each) and on the xla arm with dense X
+   (4); launches per epoch asserted, a falling loss, ms per epoch beside
+   the unsharded pallas epoch of phase 5, and one epoch on the card
+   against the same epoch on the CPU (a gloo group of the same process)
+   for each; then the hierarchical propagator at D = I = 1, built
+   directly, bit-equal to the flat world-size-1 arm in eval and train
+   mode on both arms, serving the checkpoint (K K1 launches a request
+   on pallas) with the flat sharded ``predict``'s predictions;
+13. print one ``{"kernels": [...]}`` line (launches per path, the
    ``retrieve <arm>``, ``bench <name>``, ``predict blocked``, ``train
-   blocked``, ``bench blocked``, ``predict sharded <arm>`` and ``bench
-   scaling <arm>`` paths included), then the card line, then ``{"ok":
+   blocked``, ``bench blocked``, ``predict sharded <arm>``, ``bench
+   scaling <arm>``, ``train sharded <arm> <X layout>`` and ``predict
+   hier <arm>`` paths included), then the card line, then ``{"ok":
    true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -134,7 +151,7 @@ REF_TOL = 1e-4         # xla arm (f32) vs the float64 reference forward
 # them
 DRAW_BOTH, DRAW_FIRST = (50, 17), (47, 16)
 SLEEP_CYCLES = 20_000_000   # ~10 ms of GPU clock: covers enqueueing 20 calls
-SLOW_MS = 100.0        # calls slower than this are timed alone (time_ms)
+SLOW_MS = 20.0         # calls slower than this are timed alone (time_ms)
 EXTRA_INNER = 5   # calls per timing of a record's extras (chains of launches)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -166,10 +183,10 @@ def queued_ms(fn, inner: int = 20, reps: int = 11, warmup: int = 3):
     (its own pair of events), the card may have waited for the host, and
     the first number is host time: host-bound is then True. A call that
     waits for the host (the plain versions do) is timed with that wait.
-    A call slower than SLOW_MS (the plain versions at the largest mask
-    shapes) is timed alone, 3 times: queueing hides nothing there, and
-    11 x 20 of it would keep the card busy for minutes and heat it before
-    the next kernel is timed."""
+    A call slower than SLOW_MS (the plain versions at the larger mask
+    shapes, dense X's among them) is timed alone, 3 times: queueing
+    hides nothing there, and 11 x 20 of it would keep the card busy for
+    seconds to minutes and heat it before the next kernel is timed."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -583,9 +600,10 @@ def mask_records(dev, graph, prop, x, x_t, edge_serial):
     Xᵀ at 1 plane (the fc1 draw) and G. Dense masks: the hidden layer
     (n × 64) for 1 key and for G keys (beside it, G single-key
     launches), and the xla arm's step masks over the EdgeList's slots for
-    K keys (serial) and G·K (batched). Returns the records of
-    ``edge_masks`` and ``dropout_mask``, headed by the serial epoch's
-    shapes (Â + Âᵀ at K planes; n × 64, one key)."""
+    K keys (serial) and G·K (batched); and those of sharded training
+    (``row_offset_records``). Returns the records of ``edge_masks`` and
+    ``dropout_mask``, headed by the serial epoch's shapes (Â + Âᵀ at K
+    planes; n × 64, one key)."""
     from ppnp_tpu_torch.builders import build_propagator
     from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.kernels.masks import (dropout_mask, dropout_masks,
@@ -607,14 +625,15 @@ def mask_records(dev, graph, prop, x, x_t, edge_serial):
     _, thresh = quantized_keep(prop.drop_prob)
     n, hidden = a.n_rows, 64
 
-    def dense_rec(name, shape, n_keys, seed, **extra):
+    def dense_rec(name, shape, n_keys, seed, row_offset=0, **extra):
         keys = prng.split(prng.fold_in(prng.PRNGKey(0), seed), n_keys)
         words = int(np.prod(shape[:-1])) * -(-shape[-1] // 4)
+        off = row_offset * -(-shape[-1] // 4)
         return record(
-            name, lambda: (dropout_masks(keys, shape, thresh, dev),),
-            lambda: (dropout_masks_plain(keys, shape, thresh, dev),), None,
-            n_keys * int(np.prod(shape)), 0,
-            exact_ref=(dropout_masks_plain(keys, shape, thresh),),
+            name, lambda: (dropout_masks(keys, shape, thresh, dev, off),),
+            lambda: (dropout_masks_plain(keys, shape, thresh, dev, off),),
+            None, n_keys * int(np.prod(shape)), 0,
+            exact_ref=(dropout_masks_plain(keys, shape, thresh, None, off),),
             int_ops=draw_ops(n_keys * words, DRAW_BOTH),
             **{k: fn(keys) for k, fn in extra.items()})
 
@@ -640,7 +659,52 @@ def mask_records(dev, graph, prop, x, x_t, edge_serial):
         xla_steps_batched=dense_rec(
             f"dropout masks (xla step masks, {w_pad[0]} slots, "
             f"G·K={groups * niter} keys)", w_pad, groups * niter, 38))
+    dense.update(row_offset_records(dev, dense_rec, n, hidden, x.n_cols,
+                                    thresh))
     return {"edge_masks": edge, "dropout_mask": dense}
+
+
+def row_offset_records(dev, dense_rec, n, hidden, f, thresh):
+    """The dense masks of sharded training: dense X at world size 1
+    (n_pad x f, offset 0), and the last rank's rows [3S, 4S) of an S = 4
+    row grid for X and the hidden layer, drawn from their row offset
+    alone: each bit-equal to its plain version on the CPU and to those
+    rows of the offset-0 draw of the whole (4S, width) array; and one
+    draw whose words cross 2^32 (the counter's high word), bit-equal to
+    the plain version."""
+    from ppnp_tpu_torch.kernels.masks import (dropout_masks,
+                                              dropout_masks_plain)
+    from ppnp_tpu_torch.ops import prng
+
+    n_pad = 8 * -(-n // 8)    # the row grid at 1 and 4 ranks
+    s4 = 8 * -(-n // 32)
+    recs = {"x_dense": dense_rec(f"dropout mask (dense X, {n_pad} x {f}, "
+                                 "1 key)", (n_pad, f), 1, 48)}
+    for name, width, seed in (("row_offset_x", f, 58),
+                              ("row_offset_hidden", hidden, 68)):
+        recs[name] = dense_rec(
+            f"dropout mask (rows [{3 * s4}, {4 * s4}) of {4 * s4} x "
+            f"{width}, from the row offset)", (s4, width), 1, seed,
+            row_offset=3 * s4)
+        keys = prng.split(prng.fold_in(prng.PRNGKey(0), seed), 1)
+        part = dropout_masks(keys, (s4, width), thresh, dev,
+                             3 * s4 * -(-width // 4))
+        whole = dropout_masks(keys, (4 * s4, width), thresh, dev)
+        if not torch.equal(part[0], whole[0, 3 * s4:]):
+            raise SystemExit(f"dropout mask at a row offset ({width} "
+                             "wide): not the rows of the whole draw")
+        print(f"dropout mask at row offset {3 * s4} ({width} wide): "
+              "bit-equal to rows [3S, 4S) of the offset-0 draw")
+    keys = prng.split(prng.PRNGKey(78), 2)
+    off = 2 ** 32 - 1000
+    got = dropout_masks(keys, (200, 64), thresh, dev, off)
+    if not torch.equal(got.cpu(), dropout_masks_plain(keys, (200, 64),
+                                                      thresh, None, off)):
+        raise SystemExit("dropout mask across 2^32 words: not bit-equal "
+                         "to the plain version")
+    print(f"dropout mask at word offset {off} (3,200 words across 2^32, "
+          "2 keys): bit-equal to the plain version")
+    return recs
 
 
 # one Threefry draw, by difference: the same kernel with and without it
@@ -1661,10 +1725,13 @@ def block_and_shard_records(dev):
     3 does: every block of the default plan (16,384 rows a block, on H's
     window as a row view), and the interior and boundary operators of
     every shard of an S = 4 partition of the RCM-relabelled graph, with
-    the received rows gathered from a full H on the host side. The
-    stitched blocked step is held bit-equal to the unsharded K1 step and
-    the stitched sharded step within RTOL of it. Returns the forward and
-    backward records to merge under ``spmm_csr`` and ``spmm_csr_bwd``."""
+    the received rows gathered from a full H on the host side; the
+    row-sharded sparse fc1 of each rank of that grid (X_r, S × f, and
+    X_rᵀ at hidden 64); and the ici and dcn operators of each rank of a
+    2 × 2 hierarchical plan. The stitched blocked step is held bit-equal
+    to the unsharded K1 step and the stitched sharded and hierarchical
+    steps within RTOL of it. Returns the forward and backward records to
+    merge under ``spmm_csr`` and ``spmm_csr_bwd``."""
     from ppnp_tpu_torch.builders import load_graph, resolve_alpha
     from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.kernels.blocked import build_blocked_csr
@@ -1783,6 +1850,72 @@ def block_and_shard_records(dev):
                   torch.cat(outs)[:n], want)
     print(f"sharded step stitched from 4 x 2 K1 launches vs one K1 launch "
           f"on the whole operator: max_abs_err={err:.3g} (tol {RTOL})")
+
+    # the row-sharded sparse fc1 of each rank, S = 4, hidden 64
+    from ppnp_tpu_torch.ops.sparse_input import build_sharded_sparse_input
+    from ppnp_tpu_torch.preprocessing import normalize_attributes
+    attr = normalize_attributes(graph.attr_matrix)[perm]   # relabelled
+    f = attr.shape[1]
+    w1 = torch.from_numpy((0.03 * rng.randn(f, HIDDEN)).astype(
+        np.float32)).to(dev)
+    dh = torch.from_numpy(rng.randn(s, HIDDEN).astype(np.float32)).to(dev)
+    for d in range(4):
+        xs = build_sharded_sparse_input(attr, shard_rows=s, n_shards=4,
+                                        rank=d, device=dev)
+        x, x_t = xs.csr, xs.csr_t
+        lib, lib_t = csr_tensor(x, x.val), csr_tensor(x_t, x_t.val)
+        fwd[f"fc1_shard{d}"] = record(
+            f"K1 sharded fc1, rank {d}/4 ({s} x {f}, c = {HIDDEN})",
+            lambda: spmm_csr(x, w1), lambda: spmm_csr_plain(x, w1),
+            lambda: torch.sparse.mm(lib, w1),
+            (s + 1) * 4 + x.nnz * 8 + (read_rows(x) + s) * HIDDEN * 4,
+            2 * x.nnz * HIDDEN)
+        bwd[f"fc1_shard{d}"] = record(
+            f"K1 bwd sharded fc1 (dW), rank {d}/4 ({f} x {s})",
+            lambda: spmm_csr_bwd(x_t, dh, x_t.val),
+            lambda: spmm_csr_plain(x_t, dh, x_t.val),
+            lambda: torch.sparse.mm(lib_t, dh),
+            (f + 1) * 4 + x_t.nnz * 8 + (read_rows(x_t) + f) * HIDDEN * 4,
+            2 * x_t.nnz * HIDDEN)
+        print(f"sharded fc1 rank {d}/4: nnz {x.nnz}, reads {read_rows(x)} "
+              f"of {f} W rows, {read_rows(x_t)} of {s} dH rows")
+
+    # the ici and dcn parts of a 2 x 2 hierarchical plan (its interiors
+    # are the S = 4 interiors above), each rank's chained step stitched
+    from ppnp_tpu_torch.parallel.hier import (build_hier_csr,
+                                              build_hier_sharded_graph)
+    hg = build_hier_sharded_graph(a_rel, 2, 2)
+    D = I = 2
+    print(f"hierarchical plan 2 x 2: S {hg.shard_rows}, b_ici {hg.b_ici}, "
+          f"b_dcn {hg.b_dcn}, interior/ici pads {hg.interior_pad}/"
+          f"{hg.ici_pad}, edges_pad {hg.edges_pad}, comm {hg.comm}")
+    outs = []
+    for d, op in enumerate(build_hier_csr(hg, device=dev)):
+        t, i = divmod(d, I)
+        rows = slice(d * s, (d + 1) * s)
+        # block j of the ici table: rank (t, j)'s list to position i;
+        # block (j, u) of the dcn table: rank (u, j)'s list to slice t
+        ici = np.concatenate([(t * I + j) * s + hg.send_idx_ici[t * I + j, i]
+                              for j in range(I)])
+        dcn = np.concatenate([(u * I + j) * s + hg.send_idx_dcn[u * I + j, t]
+                              for j in range(I) for u in range(D)])
+        tables = (h[rows], h.index_select(0, torch.from_numpy(ici).to(dev)),
+                  h.index_select(0, torch.from_numpy(dcn).to(dev)))
+        out = alpha * h[rows]
+        for p, (m, m_t, table) in enumerate(zip(op.parts, op.parts_t,
+                                                tables)):
+            part = ("interior", "ici", "dcn")[p]
+            if p > 0:
+                fwd[f"hier{d}_{part}"], bwd[f"hier{d}_{part}"] = held(
+                    f"hier 2x2 rank {d} {part} ({s} x {m.n_cols})", m, m_t,
+                    table, out, g[rows])
+            out = spmm_csr(m, table, (1.0 - alpha) * m.val, out)
+        outs.append(out)
+    err = compare("hierarchical step (2 x 2) stitched vs the unsharded "
+                  "step", torch.cat(outs)[:n], want)
+    print(f"hierarchical step stitched from 4 x 3 K1 launches vs one K1 "
+          f"launch on the whole operator: max_abs_err={err:.3g} "
+          f"(tol {RTOL})")
     return fwd, bwd
 
 
@@ -2060,7 +2193,236 @@ def sharded_path(dev):
               f"scores max_abs_err={err:.3g}")
         if agree < AGREE:
             raise SystemExit(f"retrieve_topk_{name}: agreement {agree}")
-    dist.destroy_process_group()
+    return launches
+
+
+# sharded training at world size 1: (backend, X layout) and epochs
+SHARDED_RUNS = (("pallas", "sparse", 20), ("pallas", "dense", 20),
+                ("xla", "dense", 4))
+
+
+def sharded_launches_per_epoch(backend: str, x_format: str,
+                               niter: int) -> dict:
+    """Kernel launches of one sharded training epoch at world size 1: the
+    train forward and backward, then the stopping-set eval forward.
+
+    pallas: K1 on both parts of a step (the boundary part is empty at
+    world size 1 but launched, as on every rank), forward and backward,
+    and on the sparse fc1; the step planes one edge_masks launch (the
+    empty boundary part draws nothing), X's planes another. xla: no K1;
+    the K step masks one dropout_mask launch. Dense X adds its own
+    dropout_mask launch beside the hidden layer's."""
+    sparse = x_format == "sparse"
+    per = {"dropout_mask": 1 + (not sparse)}
+    if backend == "xla":
+        per["dropout_mask"] += 1
+        return per
+    per.update(spmm_csr=2 * (2 * niter + sparse),
+               spmm_csr_bwd=2 * niter + sparse, edge_masks=1 + sparse)
+    return per
+
+
+def sharded_training_path(dev, unsharded_ms: float):
+    """Sharded training at world size 1 on NCCL (MS Academic, full
+    width): ``train --propagation sharded`` on the pallas arm with sparse
+    X (``ShardedSparseInput``) and with dense X, and on the xla arm with
+    dense X; launch counts per epoch asserted, a finite and falling loss,
+    host ms per epoch beside the unsharded pallas epoch of phase 5
+    (``unsharded_ms``), and one epoch on the card against the same epoch
+    on the CPU (a gloo group of its own). Returns launch counts per
+    path."""
+    from ppnp_tpu_torch.__main__ import main as cli_main
+    from ppnp_tpu_torch.kernels import build
+
+    launches = {}
+    for b, xf, epochs in SHARDED_RUNS:
+        ckpt = ROOT / "build" / "chip_smoke" / f"train_sharded_{b}_{xf}"
+        metrics = ckpt.with_suffix(".jsonl")
+        if metrics.exists():
+            metrics.unlink()
+        buf = io.StringIO()
+        build.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["train", "--dataset", DATASET, "--propagation",
+                           "sharded", "--backend", b, "--x-format", xf,
+                           "--device", str(dev), "--max-epochs",
+                           str(epochs), "--patience", "100",
+                           "--print-interval", "0", "--checkpoint-dir",
+                           str(ckpt), "--metrics-out", str(metrics)])
+        name = f"train sharded {b} {xf}"
+        launches[name] = got = dict(build.LAUNCHES)
+        if rc != 0:
+            raise SystemExit(f"{name} exited {rc}")
+        res = json.loads(buf.getvalue())
+        rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+        rows = [r for r in rows if r["event"] == "epoch"]
+        losses = [r["train_loss"] for r in rows]
+        niter = res["config"]["niter"]
+        per = sharded_launches_per_epoch(b, xf, niter)
+        want = {k: per.get(k, 0) * epochs for k in got}
+        if b == "pallas":   # the final evaluation
+            want["spmm_csr"] += 2 * niter + (xf == "sparse")
+        ts = np.array([r["ts"] for r in rows])
+        ms = float(np.median(np.diff(ts[1:]))) * 1e3
+        print(f"{name}: {len(rows)} epochs, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, valtest acc "
+              f"{res['valtest']['accuracy']:.4f}, x_format "
+              f"{res['x_format']}, ms/epoch (median of epochs 2..{epochs - 1}"
+              f", host clock) {ms:.3f} against {unsharded_ms:.3f} unsharded "
+              f"pallas (sparse X), launches per epoch {per}")
+        if got != want or len(rows) != epochs or res["x_format"] != xf:
+            raise SystemExit(f"{name}: {len(rows)} epochs, x_format "
+                             f"{res['x_format']}, launches {got}, expected "
+                             f"{want}")
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise SystemExit(f"{name}: loss not finite and falling: "
+                             f"{losses}")
+    for b, xf, _ in SHARDED_RUNS:
+        sharded_epoch_card_vs_cpu(dev, b, xf)
+    return launches
+
+
+def sharded_epoch_card_vs_cpu(dev, backend: str, x_format: str) -> None:
+    """One sharded training epoch's loss and all-reduced weight gradients
+    on the card (world size 1, NCCL) against the same epoch on the CPU
+    (world size 1 on a gloo group of the same process), from the same key
+    and weights."""
+    import torch.distributed as dist
+
+    from ppnp_tpu_torch.builders import load_graph, resolve_alpha
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.models.appnp import init_mlp_params
+    from ppnp_tpu_torch.ops import prng
+    from ppnp_tpu_torch.ops.normalize import calc_A_hat
+    from ppnp_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from ppnp_tpu_torch.parallel.partition import (build_sharded_csr,
+                                                   build_sharded_graph)
+    from ppnp_tpu_torch.parallel.sharded import ShardedPowerIteration
+    from ppnp_tpu_torch.preprocessing import gen_splits
+    from ppnp_tpu_torch.train import (default_idx_split_args,
+                                      loss_and_grads, prepare_attr_input)
+
+    cpu = torch.device("cpu")
+    cfg = RunConfig(dataset=DATASET, propagation="sharded", backend=backend)
+    graph = load_graph(cfg)
+    labels = np.asarray(graph.labels)
+    idx, _, _ = gen_splits(labels, default_idx_split_args)
+    sg = build_sharded_graph(calc_A_hat(graph.adj_matrix), n_shards=1)
+    key_init, key_epochs = prng.split(prng.PRNGKey(0))
+    gloo = dist.new_group(ranks=[0], backend="gloo")
+    meshes = (Mesh(group=gloo, rank=0, world_size=1, device=cpu),
+              make_mesh(device=dev))
+    out = []
+    for mesh in meshes:
+        d = mesh.device
+        csr = (build_sharded_csr(sg, shards=[0], device=d)[0]
+               if backend == "pallas" else None)
+        prop = ShardedPowerIteration(
+            graph=sg, mesh=mesh, csr=csr, alpha=resolve_alpha(cfg),
+            niter=cfg.niter, drop_prob=cfg.drop_prob, backend=backend)
+        x = prepare_attr_input(graph, prop, x_format=x_format)
+        model = init_mlp_params(x.shape[1], [HIDDEN], int(labels.max()) + 1,
+                                key=key_init, device=d)
+        loss, grads = loss_and_grads(
+            model, x, prop, torch.from_numpy(idx).to(d),
+            torch.from_numpy(labels[idx]).long().to(d),
+            key=prng.fold_in(key_epochs, 3), drop_prob=cfg.drop_prob,
+            reg_lambda=cfg.reg_lambda)
+        out.append((loss.item(), [g.cpu() for g in grads]))
+    dist.destroy_process_group(gloo)
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    err = [float((a - b).abs().max()) for a, b in zip(g_card, g_cpu)]
+    print(f"one sharded epoch ({backend}, {x_format} X) card vs CPU: loss "
+          f"{l_card:.7f} vs {l_cpu:.7f}, grad max_abs_err {err}")
+    np.testing.assert_allclose(l_card, l_cpu, rtol=RTOL, atol=ATOL)
+    for a, b in zip(g_card, g_cpu):
+        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def hier_path(dev):
+    """The hierarchical propagator at D = I = 1, built directly (one card
+    holds one NCCL rank): its eval and train-mode outputs bit-equal to
+    the flat world-size-1 arm's on the relabelled MS Academic graph (the
+    xla arm under deterministic ``index_add_``), and the serving
+    checkpoint's predictions through it (K K1 launches a request on
+    pallas: only the interior part is present at 1 x 1), equal to the
+    flat sharded ``predict``'s. Returns launch counts per path."""
+    from ppnp_tpu_torch.builders import load_graph, resolve_alpha
+    from ppnp_tpu_torch.checkpoint import restore_checkpoint
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.kernels import build
+    from ppnp_tpu_torch.models.appnp import MLP
+    from ppnp_tpu_torch.ops import prng
+    from ppnp_tpu_torch.ops.normalize import calc_A_hat
+    from ppnp_tpu_torch.parallel.hier import (HierShardedPowerIteration,
+                                              build_hier_csr,
+                                              build_hier_sharded_graph)
+    from ppnp_tpu_torch.parallel.mesh import make_hier_mesh, make_mesh
+    from ppnp_tpu_torch.parallel.partition import (build_sharded_csr,
+                                                   build_sharded_graph)
+    from ppnp_tpu_torch.parallel.sharded import ShardedPowerIteration
+    from ppnp_tpu_torch.train import get_predictions, prepare_attr_input
+
+    ckpt = ROOT / "build" / "chip_smoke"
+    cfg = RunConfig(dataset=DATASET, propagation="sharded")
+    graph = load_graph(cfg)
+    a_hat = calc_A_hat(graph.adj_matrix)
+    n = graph.num_nodes()
+    hg, sg = build_hier_sharded_graph(a_hat, 1, 1), build_sharded_graph(
+        a_hat, 1)
+    hmesh, mesh = make_hier_mesh(1, 1, device=dev), make_mesh(device=dev)
+    model = MLP.from_state_dict(restore_checkpoint(str(ckpt))["best_state"],
+                                device=dev)
+    c = model.layers[-1].weight.shape[0]
+    h = torch.from_numpy(np.random.RandomState(6).randn(
+        sg.n_pad, c).astype(np.float32)).to(dev)
+    key = prng.PRNGKey(9)
+    kw = dict(alpha=resolve_alpha(cfg), niter=cfg.niter,
+              drop_prob=cfg.drop_prob)
+    launches = {}
+    for b in ("xla", "pallas"):
+        pallas = b == "pallas"
+        hier = HierShardedPowerIteration(
+            graph=hg, mesh=hmesh, backend=b, **kw,
+            csr=build_hier_csr(hg, shards=[0], device=dev)[0]
+            if pallas else None)
+        flat = ShardedPowerIteration(
+            graph=sg, mesh=mesh, backend=b, **kw,
+            csr=build_sharded_csr(sg, shards=[0], device=dev)[0]
+            if pallas else None)
+        # index_add_ adds in no fixed order on the card unless asked to
+        torch.use_deterministic_algorithms(not pallas)
+        try:
+            with torch.no_grad():
+                same = [torch.equal(hier(h, train=train, key=key),
+                                    flat(h, train=train, key=key))
+                        for train in (False, True)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        print(f"hierarchical 1 x 1 ({b}) vs the flat world-size-1 arm: "
+              f"eval {'bit-equal' if same[0] else 'DIFFERS'}, train "
+              f"{'bit-equal' if same[1] else 'DIFFERS'}; parts present "
+              f"{hier.present}")
+        if not all(same):
+            raise SystemExit(f"hierarchical 1 x 1 {b}: not bit-equal to "
+                             "the flat arm")
+        x = prepare_attr_input(graph, hier)
+        build.reset_launches()
+        for _ in range(REQUESTS):
+            preds = get_predictions(model, x, hier)[:n]
+        launches[f"predict hier {b}"] = got = dict(build.LAUNCHES)
+        want = {k: 0 for k in got}
+        if pallas:
+            want["spmm_csr"] = cfg.niter * REQUESTS
+        flat_preds = np.load(ckpt / f"preds_sharded_{b}.npz")["predictions"]
+        print(f"predict hier {b} (1 x 1): launches {got}; predictions equal "
+              f"to the flat sharded predict's on "
+              f"{float((preds == flat_preds).mean()):.6f}")
+        if got != want or not np.array_equal(preds, flat_preds):
+            raise SystemExit(f"predict hier {b}: launches {got}, expected "
+                             f"{want}, or predictions differ")
+        del x
+    hmesh.destroy()
     return launches
 
 
@@ -2130,6 +2492,12 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(sharded_path(dev))
     print(f"sharded phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches.update(sharded_training_path(dev, epoch_ms["pallas"]))
+    launches.update(hier_path(dev))
+    torch.distributed.destroy_process_group()
+    print(f"sharded training and hierarchical phase: "
+          f"{time.perf_counter() - t0:.2f} s")
 
     meta = {
         "spmm_csr": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",

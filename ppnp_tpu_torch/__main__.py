@@ -15,20 +15,21 @@ JAX command's flags but ``--layout``.
 
 ``--backend blocked`` runs K1 once per RCM row block
 (``--rows-per-block``). ``--propagation sharded`` (``--n-shards``,
-``--exchange``, ``--shard-reorder``) runs one rank per shard over
-``torch.distributed``: launch ``torchrun --nproc-per-node N -m
-ppnp_tpu_torch ...``, or run it alone for world size 1; only rank 0
-prints. ``predict`` and ``retrieve`` take it; ``retrieve`` trains on
-rank 0 on the unsharded operator of the same arm (sharded training is
-not ported yet), broadcasts the weights and serves the table sharded
-(``retrieve_topk_sharded``). ``bench --scaling`` runs over the same
-process group, and ``bench --retrieval`` adds its sharded paths under
-``torchrun``.
+``--exchange``, ``--shard-reorder``, ``--n-slices``) runs one rank per
+shard over ``torch.distributed``: launch ``torchrun --nproc-per-node N
+-m ppnp_tpu_torch ...``, or run it alone for world size 1; only rank 0
+prints and writes. ``--n-slices D`` > 1 shards over a D × (N / D) mesh
+with the two-level exchange (``parallel/hier.py``). ``train``,
+``predict`` and ``retrieve`` take it; ``retrieve`` trains on the sharded
+operator, as the JAX package does (every rank holds the same weights:
+the gradient is all-reduced), and serves the table sharded
+(``retrieve_topk_sharded``). ``bench --scaling`` and ``bench --training
+--propagation sharded`` run over the same process group, and ``bench
+--retrieval`` adds its sharded paths under ``torchrun``.
 
 Flags of the JAX CLI that select what the port does not have yet are
 accepted so the same command lines parse, and raise where they matter
-(``train --propagation sharded``, ``--n-slices`` > 1,
-``--x-dtype bfloat16``, ``train --tensorboard``, ``--profile``);
+(``--x-dtype bfloat16``, ``train --tensorboard``, ``--profile``);
 ``--layout`` does not change a CSR operator.
 """
 
@@ -97,8 +98,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 def _is_rank0() -> bool:
     """Whether this process prints: rank 0, or no process group."""
-    import torch.distributed as dist
-    return not dist.is_initialized() or dist.get_rank() == 0
+    from ppnp_tpu_torch.parallel.mesh import is_rank0
+    return is_rank0()
 
 
 def _cfg_from_args(args) -> RunConfig:
@@ -138,7 +139,7 @@ def cmd_train(args) -> int:
     propagator = build_propagator(cfg, graph, device=device)
     metrics = JsonlWriter(cfg.metrics_path) if cfg.metrics_path else None
     try:
-        _, result = train_model(
+        model, result = train_model(
             graph, propagator, metrics=metrics,
             checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
             **train_kwargs(cfg))
@@ -148,8 +149,26 @@ def cmd_train(args) -> int:
     out = {k: v for k, v in result.items() if k != "predictions"}
     out["config"] = json.loads(cfg.to_json())
     out["device"] = str(device)
-    print(json.dumps(out, indent=2, default=float))
+    if hasattr(propagator, "row_range"):
+        out["ranks"] = _weights_on_ranks(model, propagator.mesh)
+    if _is_rank0():
+        print(json.dumps(out, indent=2, default=float))
     return 0
+
+
+def _weights_on_ranks(model, mesh) -> dict:
+    """The world size and whether every rank holds the same trained
+    weights: a float64 checksum (Σw, Σ|w|) all-reduced as MAX and MIN."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    sums = torch.stack([flat.double().sum(), flat.double().abs().sum()])
+    hi, lo = sums.clone(), sums.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.group)
+    return {"world_size": mesh.world_size, "weights_checksum": hi.tolist(),
+            "weights_equal": bool(torch.equal(hi, lo))}
 
 
 def cmd_predict(args) -> int:
@@ -270,17 +289,13 @@ def cmd_retrieve(args) -> int:
     """Train, then print each of the first ``--nqueries`` nodes' top-k
     neighbours in the propagated embedding table.
 
-    Under ``--propagation sharded`` rank 0 trains the model on the
-    unsharded operator of the same arm over the same relabelled graph
-    (sharded training is ROADMAP item 6) and broadcasts its weights, so
-    every rank serves the one model; then the table is built sharded,
-    each rank its rows, and scored with ``retrieve_topk_sharded``."""
-    import dataclasses
-
+    Under ``--propagation sharded`` every rank trains on the sharded
+    operator (``ppnp_tpu/__main__.py:266-269``), so every rank holds the
+    same weights; then the table is built sharded, each rank its rows,
+    and scored with ``retrieve_topk_sharded``."""
     from ppnp_tpu_torch.builders import (build_propagator, load_graph,
                                          train_kwargs)
     from ppnp_tpu_torch.device import resolve_device
-    from ppnp_tpu_torch.parallel.mesh import broadcast_from_rank0
     from ppnp_tpu_torch.parallel.sharded import all_gather_rows
     from ppnp_tpu_torch.retrieval import (build_embedding_table,
                                           retrieve_topk,
@@ -292,15 +307,7 @@ def cmd_retrieve(args) -> int:
     graph = load_graph(cfg)
     propagator = build_propagator(cfg, graph, device=device)
     sharded = cfg.propagation == "sharded"
-    if not sharded:
-        model, _ = train_model(graph, propagator, **train_kwargs(cfg))
-    else:
-        def train_unsharded():
-            trainer = build_propagator(
-                dataclasses.replace(cfg, propagation="power"), graph,
-                device=propagator.device)
-            return train_model(graph, trainer, **train_kwargs(cfg))[0]
-        model = broadcast_from_rank0(train_unsharded, propagator.mesh)
+    model, _ = train_model(graph, propagator, **train_kwargs(cfg))
     # the table is built from the densified, L1-normalized X (the CSR
     # operator has no padding rows, so nothing is padded; a sharded
     # table is this rank's rows, padded at the tail)
@@ -487,7 +494,8 @@ def main(argv=None) -> int:
     p.add_argument("--propagation", default="power",
                    choices=["power", "sharded"],
                    help="with --training: propagation operator family "
-                        "(sharded training not ported yet)")
+                        "(sharded: over the process group, torchrun or "
+                        "world size 1)")
     p.add_argument("--blocked-scale", action="store_true",
                    help="xla vs the blocked backend on a large synthetic "
                         "graph")
@@ -519,5 +527,17 @@ def main(argv=None) -> int:
     return args.fn(args)
 
 
+def _close_process_group() -> None:
+    """After a command run as a program: wait for every rank, then tear
+    the process group down, so that no rank exits with its collectives'
+    threads still running."""
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    _close_process_group()
+    sys.exit(rc)

@@ -15,13 +15,14 @@ times say nothing of the card) and returns the JAX bench's keys, with
 - The operator is Â in CSR under RCM for every kernel arm
   (``"layout": "csr_rcm"``); the TPU pair-chunk layouts and their issue
   model (``layout``, ``issue_floor_stats``) have no counterpart.
-- The sharded paths (``bench_scaling``, the sharded paths of
-  ``bench_retrieval``) run over the process group of ``parallel/mesh.py``
-  (world size 1 when nothing launched more ranks); each rank times its
-  own calls, and ``bench_scaling`` reports the slowest rank's time.
-- Sharded training waits for ROADMAP item 6 and bfloat16 X for item 7;
-  those raise. Nothing else is caught: a kernel that fails to build or
-  launch fails the bench.
+- The sharded paths (``bench_scaling``, ``bench_training`` with
+  ``propagation="sharded"``, the sharded paths of ``bench_retrieval``)
+  run over the process group of ``parallel/mesh.py`` (world size 1 when
+  nothing launched more ranks); each rank times its own calls, and
+  ``bench_scaling`` and the sharded ``bench_training`` report the
+  slowest rank's time.
+- bfloat16 X waits for ROADMAP item 7 and raises. Nothing else is caught:
+  a kernel that fails to build or launch fails the bench.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from ppnp_tpu_torch.optim import Adam
 from ppnp_tpu_torch.parallel.mesh import Mesh, make_mesh
 from ppnp_tpu_torch.parallel.partition import (build_sharded_csr,
                                                build_sharded_graph)
-from ppnp_tpu_torch.parallel.sharded import ShardedPowerIteration
+from ppnp_tpu_torch.parallel.sharded import RowSharded, ShardedPowerIteration
 from ppnp_tpu_torch.retrieval import (build_embedding_table, retrieve_topk,
                                       retrieve_topk_qsharded,
                                       retrieve_topk_sharded)
@@ -389,6 +390,11 @@ def bench_training(
     per-epoch cost over its chunks (``chunk_times``), the first chunk
     discarded when more than one ran. ``fixed_overhead_s`` is the timed
     call's wall time outside its chunks (set-up, X upload, final eval).
+
+    ``propagation="sharded"`` times the sharded epoch of
+    ``ppnp_tpu/benchmarks.py:444-519`` over the process group (every rank
+    trains its rows, the gradient all-reduced): each number is the
+    slowest rank's.
     """
     dev = resolve_device(device)
     cfg = RunConfig(dataset=dataset, propagation=propagation,
@@ -412,6 +418,12 @@ def bench_training(
     chunks = res["chunk_times"][1:] or res["chunk_times"]
     per_epoch = sorted(s / n for n, s in chunks)
     steady = per_epoch[(len(per_epoch) - 1) // 2]
+    fixed = wall - sum(s for _, s in res["chunk_times"])
+    if isinstance(prop, RowSharded):
+        slowest = torch.tensor([steady, fixed, wall], dtype=torch.float64,
+                               device=prop.device)
+        dist.all_reduce(slowest, op=dist.ReduceOp.MAX, group=prop.mesh.group)
+        steady, fixed, wall = slowest.tolist()
     return {
         "dataset": dataset, "backend": backend, "epochs": epochs,
         "propagation": propagation,
@@ -419,7 +431,7 @@ def bench_training(
         "x_format": res["x_format"],
         "epochs_per_s": 1.0 / steady,
         "s_per_epoch": steady,
-        "fixed_overhead_s": wall - sum(s for _, s in res["chunk_times"]),
+        "fixed_overhead_s": fixed,
         "wall_s": wall,
         "valtest_accuracy": res["valtest"]["accuracy"],
         "device": _device_name(dev),

@@ -3,11 +3,13 @@
 Counterpart of ``ppnp_tpu/builders.py`` for ``propagation="power"`` with
 the ``xla``, ``pallas``, ``fused`` and ``blocked`` backends,
 ``propagation="exact"`` (dense Π, ``ops/exact.py``; the backend does not
-apply) and the flat ``propagation="sharded"`` (``parallel/``; the xla and
-pallas arms, one rank per shard). The ``pallas``/``fused`` operator is Â
-in CSR under the reverse Cuthill-McKee permutation the JAX builders pack
-with (for every ``--layout``), so packed coordinates and edge ids agree,
-plus the CSR of Âᵀ for the backward; ``blocked`` cuts that operator into
+apply) and ``propagation="sharded"`` (``parallel/``; the xla and pallas
+arms, one rank per shard): flat, or with ``n_slices`` D > 1 the
+hierarchical D × (world / D) mesh of ``parallel/hier.py``. The
+``pallas``/``fused`` operator is Â in CSR under the reverse Cuthill-McKee
+permutation the JAX builders pack with (for every ``--layout``), so
+packed coordinates and edge ids agree, plus the CSR of Âᵀ for the
+backward; ``blocked`` cuts that operator into
 row blocks (``kernels/blocked.py``). A sharded graph is relabelled by RCM
 when it is loaded (``shard_reorder="rcm"``), before it is partitioned.
 """
@@ -16,6 +18,8 @@ from __future__ import annotations
 
 import logging
 from typing import Any, Dict, Union
+
+import torch.distributed as dist
 
 from ppnp_tpu_torch.config import RunConfig
 from ppnp_tpu_torch.data.datasets import DATASETS, load_dataset
@@ -28,10 +32,14 @@ from ppnp_tpu_torch.ops.propagation import BACKENDS, PPRPowerIteration
 from ppnp_tpu_torch.ops.sparse import (csr_from_scipy, csr_transpose,
                                        edge_list_from_scipy,
                                        rcm_permutation)
-from ppnp_tpu_torch.parallel.mesh import HIER_TODO, make_mesh
+from ppnp_tpu_torch.parallel.hier import (HierShardedPowerIteration,
+                                          build_hier_csr,
+                                          build_hier_sharded_graph)
+from ppnp_tpu_torch.parallel.mesh import (initialize_distributed,
+                                          make_hier_mesh, make_mesh)
 from ppnp_tpu_torch.parallel.partition import (build_sharded_csr,
                                                build_sharded_graph)
-from ppnp_tpu_torch.parallel.sharded import ShardedPowerIteration
+from ppnp_tpu_torch.parallel.sharded import RowSharded, ShardedPowerIteration
 
 logger = logging.getLogger(__name__)
 
@@ -55,8 +63,7 @@ def resolve_alpha(cfg: RunConfig) -> float:
 
 
 def build_propagator(cfg: RunConfig, graph: SparseGraph, device=None
-                     ) -> Union[PPRPowerIteration, PPRExact,
-                                ShardedPowerIteration]:
+                     ) -> Union[PPRPowerIteration, PPRExact, RowSharded]:
     """The propagation operator named by the config, on ``device``
     (default cuda; raises when CUDA is absent). ``sharded`` starts the
     process group if it is not up (``parallel/mesh.py``) and builds this
@@ -94,13 +101,15 @@ def build_propagator(cfg: RunConfig, graph: SparseGraph, device=None
                              blocked=blocked)
 
 
-def _build_sharded(cfg: RunConfig, graph: SparseGraph, dev
-                   ) -> ShardedPowerIteration:
-    """The flat row-sharded operator: one rank per shard, ``n_shards``
+def _build_sharded(cfg: RunConfig, graph: SparseGraph, dev) -> RowSharded:
+    """The row-sharded operator: one rank per shard, ``n_shards``
     (default: the world size) equal to the group's size; the graph was
-    already relabelled by ``load_graph``."""
+    already relabelled by ``load_graph``. With ``n_slices`` D > 1 the
+    hierarchical plan over a D × (world / D) mesh
+    (``ppnp_tpu/builders.py:127-156``); its exchange is its own, so
+    ``exchange="allgather"`` raises there (the JAX branch ignores it)."""
     if (cfg.n_slices or 1) > 1:
-        raise NotImplementedError(f"--n-slices > 1: {HIER_TODO}")
+        return _build_hier(cfg, graph, dev)
     mesh = make_mesh(n_devices=cfg.n_shards, device=dev)
     a_hat = calc_A_hat(graph.adj_matrix)
     sg = build_sharded_graph(a_hat, n_shards=mesh.world_size)
@@ -113,6 +122,35 @@ def _build_sharded(cfg: RunConfig, graph: SparseGraph, dev
         graph=sg, mesh=mesh, csr=csr, alpha=resolve_alpha(cfg),
         niter=cfg.niter, drop_prob=cfg.drop_prob, exchange=cfg.exchange,
         backend=cfg.backend)
+
+
+def _build_hier(cfg: RunConfig, graph: SparseGraph, dev
+                ) -> HierShardedPowerIteration:
+    D = int(cfg.n_slices)
+    if cfg.exchange != "alltoall":
+        raise ValueError(
+            f"--exchange {cfg.exchange} with --n-slices {D}: the "
+            "hierarchical plan has its own two-level exchange; use the "
+            "default alltoall")
+    initialize_distributed(dev)
+    world = dist.get_world_size()
+    if cfg.n_shards is not None and cfg.n_shards != world:
+        raise ValueError(
+            f"n_shards={cfg.n_shards} but the process group has {world} "
+            "ranks; the port runs one rank per shard")
+    if world % D:
+        raise ValueError(f"n_shards={world} not divisible by n_slices={D}")
+    mesh = make_hier_mesh(D, world // D, device=dev)
+    hg = build_hier_sharded_graph(calc_A_hat(graph.adj_matrix), D,
+                                  world // D)
+    logger.info("hier-sharded %dx%d: S=%d b_ici=%d b_dcn=%d E=%d", D,
+                world // D, hg.shard_rows, hg.b_ici, hg.b_dcn, hg.edges_pad)
+    csr = None
+    if cfg.backend == "pallas":
+        csr, = build_hier_csr(hg, shards=[mesh.rank], device=mesh.device)
+    return HierShardedPowerIteration(
+        graph=hg, mesh=mesh, csr=csr, alpha=resolve_alpha(cfg),
+        niter=cfg.niter, drop_prob=cfg.drop_prob, backend=cfg.backend)
 
 
 def train_kwargs(cfg: RunConfig) -> Dict[str, Any]:

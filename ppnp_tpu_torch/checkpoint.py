@@ -9,6 +9,8 @@ nu}``, ``optim.Adam.state_dict()``), ``epoch`` and ``early_stopping``
 reads it back, and the serving path reads ``params``/``best_state``,
 ``epoch`` and ``early_stopping.best_epoch``. Loading uses
 ``weights_only=True``: tensors, numbers, strings, lists and dicts.
+Under ``torch.distributed`` only rank 0 writes (a sharded run's ranks
+hold the same state); every rank restores.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ppnp_tpu_torch.parallel.mesh import is_rank0
+
 logger = logging.getLogger(__name__)
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
@@ -28,7 +32,10 @@ _FILE = "state.pt"
 
 def save_checkpoint(directory: str, step: int, state: Dict[str, Any]
                     ) -> None:
-    """Save a state dict under ``directory/step_<step>``."""
+    """Save a state dict under ``directory/step_<step>`` (on rank 0
+    alone)."""
+    if not is_rank0():
+        return
     path = Path(directory).absolute() / f"step_{step}"
     path.mkdir(parents=True, exist_ok=True)
     torch.save(state, path / _FILE)

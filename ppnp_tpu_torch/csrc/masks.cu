@@ -55,7 +55,10 @@
 // `lead + (ceil(last / 4),)` (out0 ^ out1 of Threefry(key; i >> 32, i &
 // 0xFFFFFFFF)); byte b of word w is element 4 w + b of the row, kept iff
 // the byte is below `thresh` (keep rounded to 1/256). Plane g (blockIdx.y)
-// draws from key g with i restarting at 0. One thread per word writes its
+// draws from key g with i restarting at `word_offset`: a row-sharded rank
+// draws rows [lo, hi) of the global array as the flat words [lo *
+// ceil(last / 4), hi * ceil(last / 4)) of the whole draw (64-bit, so the
+// high counter word is set past 2^32 words). One thread per word writes its
 // 4 mask bytes, as one 32-bit store when rows are a multiple of 4 bytes.
 // Bound: operations, one draw of both words per word, 50 instructions on
 // the INT32 lanes (0.88 us a 18,331 x 64 plane).
@@ -159,13 +162,15 @@ template <bool kAligned>
 __global__ void __launch_bounds__(ppnp::kBlock)
 dropout_masks_kernel(const __grid_constant__ Keys keys, unsigned plane_words,
                      int n_words, int last, long long plane_bytes,
-                     unsigned thresh,
+                     unsigned thresh, unsigned long long word_offset,
                      unsigned char* __restrict__ mask) {
   const unsigned i = blockIdx.x * ppnp::kBlock + threadIdx.x;
   if (i >= plane_words) return;
   const int g = blockIdx.y;
-  const uint2 b = ppnp::threefry2x32(keys.k[3 * g], keys.k[3 * g + 1],
-                                     keys.k[3 * g + 2], 0u, i);
+  const unsigned long long ctr = word_offset + i;
+  const uint2 b = ppnp::threefry2x32(
+      keys.k[3 * g], keys.k[3 * g + 1], keys.k[3 * g + 2],
+      static_cast<unsigned>(ctr >> 32), static_cast<unsigned>(ctr));
   const unsigned word = b.x ^ b.y;
   const unsigned row = i / n_words;
   const int j0 = static_cast<int>(i - row * n_words) * 4;
@@ -254,14 +259,16 @@ extern "C" int ppnp_edge_masks(
 // The (n_keys, n_rows, last) keep masks of dense dropout, as bytes 0/1,
 // plane g from keys[2g], keys[2g + 1], in one launch on `stream`; returns
 // a CUDA error code. 1 <= n_keys <= 256; n_rows * ceil(last / 4) words
-// a plane, fewer than 2^32 - 256 (the thread index is 32-bit).
+// a plane, fewer than 2^32 - 256 (the thread index is 32-bit), counted
+// from the flat word `word_offset` of each key's draw (0: the whole
+// array; a row slice [lo, hi) of it: lo * ceil(last / 4)).
 extern "C" int ppnp_dropout_masks(const unsigned* keys, int n_keys,
                                   long long n_rows, int last, unsigned thresh,
-                                  unsigned char* mask, int device,
-                                  void* stream) {
+                                  long long word_offset, unsigned char* mask,
+                                  int device, void* stream) {
   const long long n_words = (last + 3) / 4;
   const long long plane_words = n_rows * n_words;
-  if (n_keys < 1 || n_keys > kMaxKeys || last < 1 ||
+  if (n_keys < 1 || n_keys > kMaxKeys || last < 1 || word_offset < 0 ||
       plane_words > 0xFFFFFF00ll) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -274,12 +281,15 @@ extern "C" int ppnp_dropout_masks(const unsigned* keys, int n_keys,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Keys k = copy_keys(keys, n_keys);
   const unsigned pw = static_cast<unsigned>(plane_words);
+  const unsigned long long off = static_cast<unsigned long long>(word_offset);
   if (last % 4 == 0) {
     dropout_masks_kernel<true><<<grid, ppnp::kBlock, 0, st>>>(
-        k, pw, static_cast<int>(n_words), last, n_rows * last, thresh, mask);
+        k, pw, static_cast<int>(n_words), last, n_rows * last, thresh, off,
+        mask);
   } else {
     dropout_masks_kernel<false><<<grid, ppnp::kBlock, 0, st>>>(
-        k, pw, static_cast<int>(n_words), last, n_rows * last, thresh, mask);
+        k, pw, static_cast<int>(n_words), last, n_rows * last, thresh, off,
+        mask);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,8 +54,9 @@ _ENTRY = {
         # bits, keys; n_keys; thresh; keep, scale; device; stream
         "ppnp_edge_masks": [_P] * 4 + [_I] * 2 + [_L] + [_P] * 5
         + [_I, _U, _F, _F, _I, _P],
-        # keys, n_keys, n_rows, last, thresh, mask, device, stream
-        "ppnp_dropout_masks": [_P, _I, _L, _I, _U, _P, _I, _P],
+        # keys, n_keys, n_rows, last, thresh, word_offset, mask, device,
+        # stream
+        "ppnp_dropout_masks": [_P, _I, _L, _I, _U, _L, _P, _I, _P],
     },
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -13,7 +13,8 @@ same Threefry in int64 torch ops (``ops/hashrng.py``).
   (``ops/sparse.py::csr_transpose``);
 - ``dropout_masks``: the keep masks of dense dropout (8-bit draws, four
   per 32-bit word of ``jax.random.bits``) for G keys in one launch
-  (``dropout_mask``: one key).
+  (``dropout_mask``: one key), from a flat word offset of the draw
+  (``word_offset``; 0 but for a row slice of a row-sharded array).
 
 A wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Keys are host arrays
@@ -159,16 +160,19 @@ def _edge_masks_launch(keys: np.ndarray, a: CsrMatrix,
 
 
 def dropout_masks_plain(keys, shape: Sequence[int], thresh: int,
-                        device=None) -> torch.Tensor:
+                        device=None, word_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch keep masks (bool ``(G, *shape)``) of dense dropout:
     plane g holds the bytes of ``jax.random.bits(keys[g], lead +
-    (ceil(last/4),))`` below ``thresh``."""
+    (ceil(last/4),))`` below ``thresh``; with ``word_offset`` the words
+    from that flat index on (rows ``[lo, ...)`` of a larger draw with the
+    same ``last``: ``lo·ceil(last/4)``)."""
     keys = _keys(keys)
     shape = tuple(int(d) for d in shape)
     lead, last = shape[:-1], shape[-1]
     n_words = -(-last // 4)
     rows = int(np.prod(lead, dtype=np.int64))
-    idx = torch.arange(rows * n_words, dtype=torch.int64, device=device)
+    idx = torch.arange(word_offset, word_offset + rows * n_words,
+                       dtype=torch.int64, device=device)
     shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=device)
     planes = []
     for k0, k1 in keys:
@@ -187,18 +191,24 @@ def dropout_mask_plain(key, shape: Sequence[int], thresh: int,
 
 
 def dropout_masks(keys, shape: Sequence[int], thresh: int,
-                  device: torch.device) -> torch.Tensor:
+                  device: torch.device, word_offset: int = 0
+                  ) -> torch.Tensor:
     """Keep masks (bool ``(G, *shape)``) of dense dropout on ``device``,
     plane g drawn from ``keys[g]`` as ``dropout_mask(keys[g], ...)``
-    draws it: the plain version on the CPU, one kernel launch for every
-    256 keys on a card."""
+    draws it, from the flat word ``word_offset`` of each draw on: the
+    plain version on the CPU, one kernel launch for every 256 keys on a
+    card."""
     keys = _keys(keys)
     device = torch.device(device)
+    word_offset = int(word_offset)
     if not 0 < thresh < 256:
         raise ValueError(f"dropout_masks: thresh={thresh} must lie in "
                          "(0, 256)")
+    if not 0 <= word_offset < 2 ** 63:
+        raise ValueError(f"dropout_masks: word_offset={word_offset} must "
+                         "lie in [0, 2^63)")
     if device.type == "cpu":
-        return dropout_masks_plain(keys, shape, thresh, device)
+        return dropout_masks_plain(keys, shape, thresh, device, word_offset)
     if device.type != "cuda":
         raise ValueError(f"dropout_masks: unsupported device {device}")
     shape = tuple(int(d) for d in shape)
@@ -216,7 +226,7 @@ def dropout_masks(keys, shape: Sequence[int], thresh: int,
         chunk = np.ascontiguousarray(keys[g0:g0 + MAX_KEYS_PER_LAUNCH])
         err = lib.ppnp_dropout_masks(
             chunk.ctypes.data, chunk.shape[0], rows, shape[-1], thresh,
-            mask[g0].data_ptr(), device.index or 0, stream)
+            word_offset, mask[g0].data_ptr(), device.index or 0, stream)
         build.check_error(lib, err, "dropout_masks launch")
         build.LAUNCHES["dropout_mask"] += 1
     return mask

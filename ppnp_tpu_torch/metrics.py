@@ -1,7 +1,9 @@
 """Structured metrics: JSONL writer + numpy metric helpers.
 
 The port's own copy of ``ppnp_tpu/metrics.py`` (numpy only), except that
-``TensorboardWriter`` is not ported yet and raises.
+``TensorboardWriter`` is not ported yet and raises, and that under
+``torch.distributed`` only rank 0 writes a ``JsonlWriter``'s rows (every
+rank of a sharded run computes the same metrics).
 
 The reference only logs free text every ``print_interval`` epochs and a
 final result dict (``ppnp/pytorch/training.py`` — SURVEY.md §5 row
@@ -18,6 +20,8 @@ from pathlib import Path
 from typing import IO, Optional, Union
 
 import numpy as np
+
+from ppnp_tpu_torch.parallel.mesh import is_rank0
 
 __all__ = ["accuracy", "macro_f1", "JsonlWriter",
            "TensorboardWriter", "TeeWriter", "TENSORBOARD_TODO"]
@@ -51,12 +55,15 @@ def macro_f1(y_true: np.ndarray, y_pred: np.ndarray,
 
 
 class JsonlWriter:
-    """Append-only JSONL metrics stream with automatic timestamps."""
+    """Append-only JSONL metrics stream with automatic timestamps; on a
+    rank other than 0 it opens nothing and writes nothing."""
 
     def __init__(self, path: Union[str, Path, None] = None,
                  fileobj: Optional[IO] = None):
         self._own = False
-        if fileobj is not None:
+        if not is_rank0():
+            self._f = None
+        elif fileobj is not None:
             self._f = fileobj
         elif path is not None:
             self._f = open(path, "a")

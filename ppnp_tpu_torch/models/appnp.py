@@ -13,6 +13,12 @@ Train mode draws the JAX package's dropout masks from the same keys
 (``ops/prng.py``): ``ppnp_forward`` splits its key into (MLP,
 propagation), ``mlp_forward`` splits the MLP key per layer; dropout
 precedes every layer, id-keyed on X's values when X is sparse.
+
+Under a row-sharded propagator the MLP runs on this rank's rows
+``[lo, hi)`` of X (the propagator's ``row_range``), with the weights
+replicated on every rank: each dense dropout draws rows ``[lo, hi)`` of
+the mask JAX draws over the whole padded array (``row_offset`` = lo), and
+a ``ShardedSparseInput`` draws its own rank's planes.
 """
 
 from __future__ import annotations
@@ -57,9 +63,11 @@ class MLP(nn.Module):
         return model
 
     def forward(self, x, *, key=None, train: bool = False,
-                drop_prob: float = 0.5) -> torch.Tensor:
+                drop_prob: float = 0.5, row_offset: int = 0
+                ) -> torch.Tensor:
         """Local logits; in train mode dropout (from ``key``) precedes
-        every layer (``ppnp_tpu/models/appnp.py:50-96``)."""
+        every layer (``ppnp_tpu/models/appnp.py:50-96``). ``x`` holds the
+        rows from ``row_offset`` on of the whole (padded) X."""
         use_drop = bool(train and drop_prob > 0.0 and key is not None)
         n_layers = len(self.layers)
         keys = prng.split(key, n_layers) if use_drop else None
@@ -71,7 +79,8 @@ class MLP(nn.Module):
                              train=train, drop_prob=drop_prob)
             else:
                 if use_drop:
-                    h = dropout(keys[i], h, drop_prob)
+                    h = dropout(keys[i], h, drop_prob,
+                                row_offset=row_offset)
                 h = F.linear(h, lin.weight)
             if i < n_layers - 1:
                 h = F.relu(h)
@@ -122,9 +131,12 @@ def params_from_jax(params: Sequence[np.ndarray], device=None) -> MLP:
 
 
 def mlp_forward(model: MLP, x, *, key=None, train: bool = False,
-                drop_prob: float = 0.5) -> torch.Tensor:
-    """Local (pre-propagation) logits H_local for all n nodes."""
-    return model(x, key=key, train=train, drop_prob=drop_prob)
+                drop_prob: float = 0.5, row_offset: int = 0
+                ) -> torch.Tensor:
+    """Local (pre-propagation) logits H_local for all n nodes (for the
+    rows of X from ``row_offset`` on)."""
+    return model(x, key=key, train=train, drop_prob=drop_prob,
+                 row_offset=row_offset)
 
 
 def ppnp_forward(model: MLP, x, propagator,
@@ -132,13 +144,16 @@ def ppnp_forward(model: MLP, x, propagator,
                  train: bool = False, drop_prob: float = 0.5
                  ) -> torch.Tensor:
     """Full PPNP forward: MLP → propagate → select idx → log_softmax,
-    with ``key_mlp, key_prop = split(key)`` (``appnp.py:104-107``)."""
+    with ``key_mlp, key_prop = split(key)`` (``appnp.py:104-107``). A
+    row-sharded propagator's ``row_range`` places this rank's rows of X
+    in the whole array."""
     if key is not None:
         key_mlp, key_prop = prng.split(key)
     else:
         key_mlp = key_prop = None
+    lo, _ = getattr(propagator, "row_range", (0, None))
     h_local = mlp_forward(model, x, key=key_mlp, train=train,
-                          drop_prob=drop_prob)
+                          drop_prob=drop_prob, row_offset=lo)
     z = propagator(h_local, idx, key=key_prop, train=train)
     return F.log_softmax(z, dim=-1)
 

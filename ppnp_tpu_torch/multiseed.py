@@ -215,8 +215,8 @@ def train_models(
     y_stop_g = on_dev(np.stack([labels_np[s[1]] for s in splits]))
 
     if x_prepared is not None:
-        _check_prepared_input(x_prepared, graph, x_format=x_format,
-                              x_dtype=x_dtype)
+        _check_prepared_input(x_prepared, graph, propagator,
+                              x_format=x_format, x_dtype=x_dtype)
         x = x_prepared
     else:
         x = prepare_attr_input(graph, propagator, x_format=x_format,

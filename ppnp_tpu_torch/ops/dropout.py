@@ -9,7 +9,10 @@ the CPU).
   ``jax.random.bits(key, lead + (ceil(last/4),))``; byte j of word w is
   element 4w + j of the row. The keep probability is rounded to a
   multiple of 1/256 and survivors are divided by it
-  (``dropout.py:22-48``).
+  (``dropout.py:22-48``). With ``row_offset`` = lo, ``x`` is rows
+  ``[lo, lo + rows)`` of a larger array (a row-sharded rank's rows) and
+  gets those rows of that array's mask: the draw's flat words from
+  ``lo·ceil(last/4)`` on, never the whole array's.
 - ``dropout_grouped``: G ``dropout`` draws from G keys in one mask call,
   over one tensor per key or, with ``shared``, one tensor for all: the
   ``jax.vmap`` of ``dropout`` over keys that ``ppnp_tpu/multiseed.py:141``
@@ -45,18 +48,22 @@ def quantized_keep(rate: float):
     return keep_q, int(keep_q * 256.0)
 
 
-def dropout(key, x: torch.Tensor, rate: float) -> torch.Tensor:
+def dropout(key, x: torch.Tensor, rate: float, *,
+            row_offset: int = 0) -> torch.Tensor:
     """Inverted dropout: zero with prob ``rate``, survivors ``x / keep``
-    with keep quantized to 1/256. Differentiable in ``x``."""
-    return dropout_grouped([key], x[None], rate)[0]
+    with keep quantized to 1/256; ``x`` is the rows from ``row_offset``
+    on of the array the mask is drawn for. Differentiable in ``x``."""
+    return dropout_grouped([key], x[None], rate, row_offset=row_offset)[0]
 
 
 def dropout_grouped(keys, x: torch.Tensor, rate: float, *,
-                    shared: bool = False) -> torch.Tensor:
+                    shared: bool = False, row_offset: int = 0
+                    ) -> torch.Tensor:
     """G inverted dropouts from ``keys`` (G, 2) in one mask call → (G,
     *s). ``x`` is (G, *s), one tensor per key, or with ``shared`` (*s),
     one tensor for every key; plane g equals ``dropout(keys[g], x[g] or
-    x, rate)`` bit for bit. Differentiable in ``x``."""
+    x, rate, row_offset=row_offset)`` bit for bit. Differentiable in
+    ``x``."""
     keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
     shape = tuple(x.shape) if shared else tuple(x.shape[1:])
     if not shared and x.shape[0] != keys.shape[0]:
@@ -65,7 +72,8 @@ def dropout_grouped(keys, x: torch.Tensor, rate: float, *,
     keep_q, thresh = quantized_keep(rate)
     if rate <= 0.0 or thresh >= 256:
         return x.expand((keys.shape[0],) + shape) if shared else x
-    mask = dropout_masks(keys, shape, thresh, x.device)
+    mask = dropout_masks(keys, shape, thresh, x.device,
+                         word_offset=row_offset * -(-shape[-1] // 4))
     return torch.where(mask, x / keep_q, torch.zeros_like(x))
 
 

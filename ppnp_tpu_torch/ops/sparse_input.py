@@ -11,19 +11,33 @@ Train mode (``sparse_input.py:79-98``): input dropout is id-keyed edge
 dropout on X's values, with ids ``row·span + col`` over span max(n, f),
 drawn for X and Xᵀ in one launch of the mask kernel; fc1 runs through K1
 and ``dW = X_dropᵀ·dH`` through K1 on the CSR of Xᵀ with the same mask.
+
+``ShardedSparseInput`` (``sparse_input.py:154-283``) is X under a
+row-sharded propagator: this rank's rows ``[r·S, (r+1)·S)`` of X, padded
+with empty rows at the tail, with ids direct over that S × f sub-matrix
+(span max(S, f), as JAX packs each shard), and its transpose. The planes
+come from ``fold_in(key, r)``, so the ranks draw independent masks on
+their disjoint rows. fc1 needs no exchange: the rows are the rank's own;
+the weights' gradient is this rank's part of ``Σ_r X_rᵀ·dH_r``, which
+training sums over the ranks (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ppnp_tpu_torch.kernels.masks import edge_masks
 from ppnp_tpu_torch.kernels.spmm import spmm_grad
-from ppnp_tpu_torch.ops.sparse import CsrMatrix
+from ppnp_tpu_torch.ops import prng
+from ppnp_tpu_torch.ops.sparse import (CsrMatrix, csr_from_scipy,
+                                       csr_transpose)
 
-__all__ = ["SparseInput"]
+__all__ = ["SparseInput", "ShardedSparseInput",
+           "build_sharded_sparse_input"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,3 +69,39 @@ class SparseInput:
                                           keep=1.0 - drop_prob)
             w_x, w_xt = planes[0], planes_t[0]
         return spmm_grad(self.csr, self.csr_t, w, w_x, w_xt)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSparseInput(SparseInput):
+    """This rank's rows of a row-sharded sparse X (module docstring):
+    ``csr`` is S × f, ``rank`` this rank on the propagator's mesh."""
+
+    rank: int = 0
+
+    def matmul(self, w: torch.Tensor, *, key=None, train: bool = False,
+               drop_prob: float = 0.5) -> torch.Tensor:
+        """This rank's rows of ``dropout(X) @ w``, the mask from
+        ``fold_in(key, rank)``."""
+        if key is not None:
+            key = prng.fold_in(key, self.rank)
+        return super().matmul(w, key=key, train=train, drop_prob=drop_prob)
+
+
+def build_sharded_sparse_input(attr: sp.spmatrix, *, shard_rows: int,
+                               n_shards: int, rank: int, device
+                               ) -> ShardedSparseInput:
+    """Rows ``[rank·S, (rank+1)·S)`` of the (L1-normalized) sparse X on
+    the propagator's row grid (``S = shard_rows``), padded with empty rows
+    to S, in CSR with its transpose on ``device``."""
+    csr = sp.csr_matrix(attr, dtype=np.float32)
+    n, f = csr.shape
+    if shard_rows * n_shards < n:
+        raise ValueError(f"shard grid {shard_rows * n_shards} rows < "
+                         f"attribute rows {n}")
+    lo = rank * shard_rows
+    sub = csr[min(lo, n):min(lo + shard_rows, n)]
+    sub = sp.csr_matrix((sub.data, sub.indices, np.pad(
+        sub.indptr, (0, shard_rows - sub.shape[0]), mode="edge")),
+        shape=(shard_rows, f))
+    x = csr_from_scipy(sub, device=device)
+    return ShardedSparseInput(csr=x, csr_t=csr_transpose(x), rank=rank)

@@ -1,13 +1,16 @@
 """Row-sharded propagation over ``torch.distributed``, one rank a shard.
 
-Counterpart of ``ppnp_tpu/parallel`` (flat path):
+Counterpart of ``ppnp_tpu/parallel``:
 
-- ``mesh.py``: the process group in place of the device mesh;
+- ``mesh.py``: the process group in place of the device mesh, flat or
+  the hierarchical (dcn, ici) mesh with a sub-group per axis;
 - ``health.py``: the heartbeat collective;
 - ``partition.py``: the numpy row partition of Â and its exchange plan,
   and each shard's interior and boundary CSR operators;
-- ``sharded.py``: the sharded power iteration (xla and pallas arms).
+- ``sharded.py``: the sharded power iteration (xla and pallas arms) and
+  the gradient rule of sharded training;
+- ``hier.py``: the hierarchical plan, each rank's three-part operators
+  and the two-level propagation.
 
-The hierarchical path (``parallel/hier.py``) is not ported yet.
 Importing this package starts no process group.
 """

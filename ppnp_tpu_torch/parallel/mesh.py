@@ -6,6 +6,8 @@ with its own device (one card per rank under ``torchrun``, or one CPU
 process per rank over gloo). ``make_mesh`` returns a small ``Mesh``
 holding the group, this rank, the world size and the device; it
 replaces ``jax.sharding.Mesh`` and has the one axis ``NODE_AXIS``.
+``make_hier_mesh`` returns the 2-axis ``(DCN_AXIS, ICI_AXIS)`` mesh of
+``parallel/hier.py``: a ``HierMesh`` with a sub-group per axis.
 
 The backend follows the device and never falls back: NCCL for a CUDA
 device (``init_process_group`` raises if NCCL cannot start), gloo for
@@ -27,19 +29,17 @@ from ppnp_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["NODE_AXIS", "Mesh", "initialize_distributed", "make_mesh",
-           "make_hier_mesh", "broadcast_from_rank0", "ITEM_6", "HIER_TODO"]
+__all__ = ["NODE_AXIS", "DCN_AXIS", "ICI_AXIS", "Mesh", "HierMesh",
+           "initialize_distributed", "make_mesh", "make_hier_mesh",
+           "is_rank0", "all_reduce_sum"]
 
 # the single mesh axis: nodes are sharded along it
 NODE_AXIS = "data"
-# what of the sharded path is not ported yet, and its ROADMAP.md item
-ITEM_6 = ("ROADMAP.md, \"Still to port\", item 6: sharded training and "
-          "the hierarchical path")
-HIER_TODO = f"the hierarchical (dcn, ici) mesh is not ported yet ({ITEM_6})"
+# the hierarchical mesh's axes: slices (outer) and the ranks of a slice
+DCN_AXIS = "dcn"
+ICI_AXIS = "ici"
 # how long a collective may wait on a peer before the group raises
 DEFAULT_TIMEOUT_S = 300.0
-# how long the other ranks wait for rank 0's work in broadcast_from_rank0
-RANK0_WAIT_S = 24 * 3600.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +51,27 @@ class Mesh:
     rank: int
     world_size: int
     device: torch.device
+
+
+@dataclasses.dataclass(frozen=True)
+class HierMesh(Mesh):
+    """The 2-axis ``(DCN_AXIS, ICI_AXIS)`` mesh of ``n_slices`` slices of
+    ``per_slice`` ranks: rank ``d = s·per_slice + i`` is position i of
+    slice s. ``group`` holds every rank, as a ``Mesh``'s does; ``ici`` is
+    this rank's slice (group rank i) and ``dcn`` the ranks at position i
+    of every slice (group rank s). ``subgroups`` are every sub-group the
+    ranks made, for ``destroy``."""
+
+    n_slices: int = 1
+    per_slice: int = 1
+    ici: object = None
+    dcn: object = None
+    subgroups: tuple = ()
+
+    def destroy(self) -> None:
+        """Tear down the sub-groups (every rank calls it)."""
+        for group in self.subgroups:
+            dist.destroy_process_group(group)
 
 
 def _local_device(device: torch.device) -> torch.device:
@@ -114,32 +135,44 @@ def make_mesh(n_devices: Optional[int] = None, device=None,
                 device=dev)
 
 
-def broadcast_from_rank0(make_model, mesh: Mesh,
-                         timeout_s: float = RANK0_WAIT_S):
-    """``make_model()`` run on rank 0 alone, its module sent to every rank
-    of ``mesh`` (the whole process group) and loaded on ``mesh.device``,
-    so the ranks hold the same weights (a model each rank trained itself
-    could differ: ``index_add_`` is not deterministic on a card). The
-    other ranks wait on a gloo group of their own whose timeout,
-    ``timeout_s``, outlasts the work; if rank 0 fails, torchrun stops
-    them."""
-    if mesh.world_size != dist.get_world_size():
-        raise ValueError("broadcast_from_rank0 takes the mesh of the whole "
-                         "process group")
-    wait = dist.new_group(backend="gloo",
-                          timeout=datetime.timedelta(seconds=timeout_s))
-    model = make_model() if mesh.rank == 0 else None
-    sent = [None if model is None else
-            (type(model), {k: v.cpu() for k, v in
-                           model.state_dict().items()})]
-    dist.broadcast_object_list(sent, src=0, group=wait)
-    dist.destroy_process_group(wait)
-    if model is not None:
-        return model
-    cls, state = sent[0]
-    return cls.from_state_dict(state, device=mesh.device)
+def make_hier_mesh(n_slices: int, per_slice: int, device=None
+                   ) -> HierMesh:
+    """The ``(n_slices, per_slice)`` mesh over every rank of the process
+    group (started if needed), which must hold ``n_slices·per_slice``
+    ranks (``ppnp_tpu/parallel/mesh.py:71-92``). Every rank makes every
+    sub-group, in the same order: the slices' groups, then the
+    positions'."""
+    D, I = int(n_slices), int(per_slice)
+    initialize_distributed(device)
+    world = dist.get_world_size()
+    if D < 1 or I < 1 or D * I != world:
+        raise ValueError(
+            f"a {D}x{I} mesh needs {D * I} ranks; the process group has "
+            f"{world} (launch with torchrun --nproc-per-node {D * I})")
+    ici, ici_all = dist.new_subgroups_by_enumeration(
+        [[s * I + i for i in range(I)] for s in range(D)])
+    dcn, dcn_all = dist.new_subgroups_by_enumeration(
+        [[s * I + i for s in range(D)] for i in range(I)])
+    dev = _local_device(resolve_device(device))
+    return HierMesh(group=dist.group.WORLD, rank=dist.get_rank(),
+                    world_size=world, device=dev, n_slices=D, per_slice=I,
+                    ici=ici, dcn=dcn, subgroups=tuple(ici_all + dcn_all))
 
 
-def make_hier_mesh(*args, **kwargs) -> Mesh:
-    """The 2-axis (dcn, ici) mesh (not ported yet)."""
-    raise NotImplementedError(HIER_TODO)
+def is_rank0() -> bool:
+    """Whether this process writes and prints: rank 0, or no process
+    group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def all_reduce_sum(tensors, mesh: Mesh):
+    """The sums over the ranks of ``mesh`` of ``tensors`` (a list of
+    same-dtype tensors on one device), in ONE ``all_reduce`` of a flat
+    buffer; every rank gets the same bits."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=mesh.group)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
+    return out

@@ -24,7 +24,19 @@ and the boundary edges, which read the received rows, then (3) the
 Gradients flow through the exchange: ``all_to_all`` is its own adjoint,
 and the adjoint of the tiled ``all_gather`` sums every rank's cotangent
 of this rank's rows (an ``all_to_all`` and a sum; gloo has no
-reduce-scatter).
+reduce-scatter): inside the propagation each rank's cotangent of the
+gathered table differs, and the sum is the gradient.
+
+The gradient rule of sharded training. ``forward(h, idx)`` gathers the
+rows of ``idx`` to every rank (``gather_replicated``), and every rank
+then computes the same loss from them, bit for bit: the loss is
+replicated, not split. So the adjoint of that gather keeps this rank's
+slice of the cotangent, which every rank holds whole, and does not sum
+it (a sum would give ``world ×`` the gradient). Each rank's gradient of
+the replicated weights is then the part its own rows of X contribute;
+``mesh.all_reduce_sum`` adds the parts, one collective per epoch, and a
+term that every rank computes on the weights alone (the L2 penalty) is
+added once, after that sum (``train.train_model``).
 
 One process is one shard. Rank r holds its rows ``[r·S, (r+1)·S)`` of
 H⁰ (``row_range``) and gets the same rows of the result: there is no
@@ -49,7 +61,8 @@ from ppnp_tpu_torch.ops.dropout import dropout_grouped
 from ppnp_tpu_torch.parallel.mesh import Mesh
 from ppnp_tpu_torch.parallel.partition import ShardCsr, ShardedGraph
 
-__all__ = ["ShardedPowerIteration", "all_to_all", "all_gather_rows"]
+__all__ = ["RowSharded", "ShardedPowerIteration", "all_to_all",
+           "all_gather_rows", "gather_replicated"]
 
 EXCHANGES = ("alltoall", "allgather")
 
@@ -90,14 +103,40 @@ class _AllGatherRows(torch.autograd.Function):
         return recv.view(ctx.world, -1, *g.shape[1:]).sum(0), None, None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    """The tiled ``all_gather`` for a computation every rank repeats on
+    the gathered rows: its adjoint is this rank's slice of the cotangent
+    (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, group, world, rank):
+        ctx.world, ctx.rank = world, rank
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.view(ctx.world, -1, *g.shape[1:])[ctx.rank].clone(),
+                None, None, None)
+
+
 def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Differentiable ``all_to_all`` of equal chunks along dim 0."""
     return _AllToAll.apply(x, mesh.group)
 
 
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Differentiable tiled ``all_gather``: (world·rows, ...)."""
+    """Differentiable tiled ``all_gather``: (world·rows, ...); its adjoint
+    sums the ranks' cotangents."""
     return _AllGatherRows.apply(x, mesh.group, mesh.world_size)
+
+
+def gather_replicated(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Tiled ``all_gather`` whose adjoint keeps this rank's slice: for a
+    result every rank then uses the same way (a replicated loss)."""
+    return _GatherReplicated.apply(x, mesh.group, mesh.world_size,
+                                   mesh.rank)
 
 
 def _segsum(gathered: torch.Tensor, w: torch.Tensor, dst: torch.Tensor,
@@ -113,7 +152,43 @@ def _k1(a, a_t, h, w, w_t, init):
     return spmm_grad(a, a_t, h, w, w_t, init)
 
 
-class ShardedPowerIteration(nn.Module):
+class RowSharded(nn.Module):
+    """What a row-sharded propagator offers its callers: this rank holds
+    rows ``row_range`` of H⁰ and of the result, ``n_rows`` in all over
+    the ranks of ``mesh``; ``forward(h, idx)`` gathers the rows of
+    ``idx`` to every rank. Subclasses set ``graph`` (with ``shard_rows``
+    and ``n_pad``) and ``mesh``, and define ``propagate``."""
+
+    @property
+    def n_rows(self) -> int:
+        """The padded row count of H⁰ over all ranks."""
+        return self.graph.n_pad
+
+    @property
+    def row_range(self) -> Tuple[int, int]:
+        """The rows ``[lo, hi)`` of H⁰ and of the result this rank
+        holds."""
+        s = self.graph.shard_rows
+        return self.mesh.rank * s, (self.mesh.rank + 1) * s
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    def forward(self, h_local: torch.Tensor,
+                idx: Optional[torch.Tensor] = None, *, key=None,
+                train: bool = False) -> torch.Tensor:
+        """Propagate this rank's rows; with ``idx`` (global row ids) the
+        rows of ``idx`` of the whole result, gathered to every rank
+        (``gather_replicated``: the caller's use of them must be the same
+        on every rank)."""
+        h = self.propagate(h_local, key=key, train=train)
+        if idx is not None:
+            h = gather_replicated(h, self.mesh).index_select(0, idx)
+        return h
+
+
+class ShardedPowerIteration(RowSharded):
     """K sharded steps of H ← (1-α)ÂH + αH⁰ with a boundary exchange, on
     this rank's rows (module docstring).
 
@@ -166,22 +241,6 @@ class ShardedPowerIteration(nn.Module):
                 .contiguous()
                 for m in (csr.interior, csr.interior_t, csr.boundary,
                           csr.boundary_t))
-
-    @property
-    def n_rows(self) -> int:
-        """The padded row count of H⁰ over all ranks."""
-        return self.graph.n_pad
-
-    @property
-    def row_range(self) -> Tuple[int, int]:
-        """The rows ``[lo, hi)`` of H⁰ and of the result this rank
-        holds."""
-        s = self.graph.shard_rows
-        return self.mesh.rank * s, (self.mesh.rank + 1) * s
-
-    @property
-    def device(self) -> torch.device:
-        return self.mesh.device
 
     def _exchange(self, h: torch.Tensor) -> torch.Tensor:
         """The received rows, (n_shards·B, c): shard o's block at rows
@@ -265,14 +324,4 @@ class ShardedPowerIteration(nn.Module):
                       None if p_i_t is None else p_i_t[j], init)
             h = _k1(csr.boundary, csr.boundary_t, recv, p_b[j],
                     None if p_b_t is None else p_b_t[j], out)
-        return h
-
-    def forward(self, h_local: torch.Tensor,
-                idx: Optional[torch.Tensor] = None, *, key=None,
-                train: bool = False) -> torch.Tensor:
-        """Propagate this rank's rows; with ``idx`` (global row ids) the
-        rows of ``idx`` of the whole result, gathered to every rank."""
-        h = self.propagate(h_local, key=key, train=train)
-        if idx is not None:
-            h = all_gather_rows(h, self.mesh).index_select(0, idx)
         return h

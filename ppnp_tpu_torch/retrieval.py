@@ -21,8 +21,10 @@ Counterpart of ``ppnp_tpu/retrieval.py``:
   to merge (``ppnp_tpu/retrieval.py:67-161``).
 
 A sharded table is this rank's rows, as ``build_embedding_table`` gives
-it under a ``ShardedPowerIteration``; rows at or past ``n_valid`` (the
-zero padding at the tail) never win.
+it under a row-sharded propagator (flat or hierarchical, and from a
+model trained sharded: ``train.train_model`` leaves every rank the same
+weights); rows at or past ``n_valid`` (the zero padding at the tail)
+never win.
 
 ``torch.topk`` and ``jax.lax.top_k`` may order tied scores differently;
 the CPU tests hold the indices where the scores are distinct.
@@ -50,7 +52,8 @@ def build_embedding_table(model: MLP, x, propagator,
 
     ``level='hidden'``: propagate the last hidden activations;
     ``level='logits'``: propagate the local logits (the model forward
-    before log-softmax). ``x`` is dense or a ``SparseInput``. Matmuls run
+    before log-softmax). ``x`` is dense or a ``SparseInput`` (under
+    sharding a ``ShardedSparseInput``, this rank's rows). Matmuls run
     in full float32 (``allow_tf32`` off), as ``train.get_predictions``.
     Under a sharded propagator ``x`` and the table are this rank's rows.
     """

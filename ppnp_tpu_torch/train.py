@@ -28,6 +28,18 @@ groups epochs by ``epoch_chunk``. ``profile_dir`` is not ported yet.
 
 Matmuls run in full float32 (``allow_tf32`` off), as the JAX reference
 computes at f32.
+
+Under a row-sharded propagator (``parallel/sharded.py``,
+``parallel/hier.py``) every rank runs ``train_model`` on its rows of X,
+the data-parallel MLP of ``ppnp_tpu/train.py`` under GSPMD: the weights
+are replicated, the loss and the stopping-set eval read the rows of
+their ids gathered to every rank, so every rank computes the same loss,
+accuracy and early-stopping decisions. The gradient rule is that of
+``parallel/sharded.py``: each rank's gradient of the NLL is its rows'
+part; ``all_reduce_sum`` adds the parts in one collective an epoch, the
+L2 term's gradient ``reg_lambda·W₁`` is added once after it, and Adam
+steps the same weights on every rank. Only rank 0 logs, writes metrics
+and writes checkpoints; ``resume`` restores on every rank.
 """
 
 from __future__ import annotations
@@ -50,27 +62,24 @@ from ppnp_tpu_torch.models.appnp import (MLP, init_mlp_params, l2_reg,
                                          ppnp_forward)
 from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.ops.sparse import csr_from_scipy, csr_transpose
-from ppnp_tpu_torch.ops.sparse_input import SparseInput
+from ppnp_tpu_torch.ops.sparse_input import (ShardedSparseInput,
+                                             SparseInput,
+                                             build_sharded_sparse_input)
 from ppnp_tpu_torch.optim import Adam
-from ppnp_tpu_torch.parallel.mesh import ITEM_6
-from ppnp_tpu_torch.parallel.sharded import (ShardedPowerIteration,
-                                             all_gather_rows)
+from ppnp_tpu_torch.parallel.mesh import all_reduce_sum, is_rank0
+from ppnp_tpu_torch.parallel.sharded import RowSharded, all_gather_rows
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["train_model", "get_predictions", "prepare_attr_input",
-           "default_idx_split_args", "BF16_TODO", "PROFILE_TODO",
-           "SHARDED_TRAIN_TODO", "SHARDED_SPARSE_TODO"]
+           "loss_and_grads", "default_idx_split_args", "BF16_TODO",
+           "PROFILE_TODO"]
 
 BF16_TODO = ("x_dtype=bfloat16 is not ported yet (ROADMAP.md, \"Still to "
              "port\", item 7: bfloat16 attributes)")
 PROFILE_TODO = ("profile_dir / --profile is not ported yet (ROADMAP.md, "
                 "\"Still to port\", item 8: TensorBoard metrics and "
                 "profiler traces)")
-SHARDED_TRAIN_TODO = ("training with a sharded propagator is not ported "
-                      f"yet ({ITEM_6})")
-SHARDED_SPARSE_TODO = ("x_format='sparse' under sharding (the row-sharded "
-                       f"ShardedSparseInput) is not ported yet ({ITEM_6})")
 
 default_idx_split_args: Dict[str, int] = {
     "ntrain_per_class": 20,
@@ -97,16 +106,17 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
 
     ``x_dtype``: ``None``/float32 only; bfloat16 raises for now.
 
-    A sharded propagator gets this rank's rows of X, dense, zero-padded
-    at the tail to the plan's ``n_pad`` rows (``ShardedPowerIteration.
-    row_range``): "auto" picks dense there, as the JAX rule does, and
-    "sparse" raises until the row-sharded sparse fc1 is ported.
+    A row-sharded propagator gets this rank's rows of X
+    (``RowSharded.row_range``), zero-padded at the tail of the last rank
+    to the plan's ``n_pad`` rows: dense, or with "sparse" a
+    ``ShardedSparseInput``; "auto" picks dense there, as the JAX rule
+    does (``ppnp_tpu/train.py:215``).
     """
     if x_dtype not in (None, "float32", torch.float32):
         raise NotImplementedError(BF16_TODO)
     attr_norm = preprocessing.normalize_attributes(graph.attr_matrix)
     device = propagator.device
-    sharded = isinstance(propagator, ShardedPowerIteration)
+    sharded = isinstance(propagator, RowSharded)
     n, f = attr_norm.shape
     if x_format == "auto":
         use_sparse = (sp.issparse(attr_norm) and not sharded
@@ -118,7 +128,10 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
         raise ValueError(f"unknown x_format {x_format!r} "
                          "(expected 'auto', 'dense' or 'sparse')")
     if use_sparse and sharded:
-        raise NotImplementedError(SHARDED_SPARSE_TODO)
+        g = propagator.graph
+        return build_sharded_sparse_input(
+            attr_norm, shard_rows=g.shard_rows, n_shards=g.n_shards,
+            rank=propagator.mesh.rank, device=device)
     if use_sparse:
         csr = csr_from_scipy(attr_norm, device=device)
         return SparseInput(csr=csr, csr_t=csr_transpose(csr))
@@ -133,11 +146,13 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
     return torch.from_numpy(x_np).to(device)
 
 
-def _check_prepared_input(x, graph: SparseGraph, *, x_format: str,
-                          x_dtype) -> None:
+def _check_prepared_input(x, graph: SparseGraph, propagator, *,
+                          x_format: str, x_dtype) -> None:
     """Validate a caller-staged ``x_prepared`` (``train.py:264-317``):
-    a staged X silently overrides ``x_format``/``x_dtype``."""
+    a staged X silently overrides ``x_format``/``x_dtype``; under a
+    row-sharded propagator it must be this rank's rows."""
     is_sparse = isinstance(x, SparseInput)
+    sharded = isinstance(propagator, RowSharded)
     if x_format == "sparse" and not is_sparse:
         raise ValueError("x_prepared is a dense tensor but x_format="
                          "'sparse' was requested; re-stage with "
@@ -146,11 +161,19 @@ def _check_prepared_input(x, graph: SparseGraph, *, x_format: str,
         raise ValueError("x_prepared is a SparseInput but x_format="
                          "'dense' was requested; re-stage with "
                          "prepare_attr_input(..., x_format='dense')")
-    if tuple(x.shape) != tuple(graph.attr_matrix.shape):
+    if is_sparse and sharded != isinstance(x, ShardedSparseInput):
         raise ValueError(
-            f"x_prepared has shape {tuple(x.shape)} but this graph needs "
-            f"{tuple(graph.attr_matrix.shape)}; it was staged for a "
-            "different graph")
+            "x_prepared is a " + type(x).__name__ + " but the propagator "
+            "is " + ("" if sharded else "not ") + "row-sharded; re-stage "
+            "with prepare_attr_input(graph, propagator, x_format='sparse')")
+    want = tuple(graph.attr_matrix.shape)
+    if sharded:
+        want = (propagator.graph.shard_rows, want[1])
+    if tuple(x.shape) != want:
+        raise ValueError(
+            f"x_prepared has shape {tuple(x.shape)} but this (graph, "
+            f"propagator) needs {want}; it was staged for a different "
+            "graph or propagator")
     if x_dtype not in (None, "float32", torch.float32):
         raise NotImplementedError(BF16_TODO)
     if not is_sparse and x.dtype != torch.float32:
@@ -171,7 +194,7 @@ def get_predictions(model: MLP, x, propagator) -> np.ndarray:
     with torch.no_grad():
         logp = ppnp_forward(model, x, propagator, None, train=False)
         preds = logp.argmax(dim=-1)
-        if isinstance(propagator, ShardedPowerIteration):
+        if isinstance(propagator, RowSharded):
             preds = all_gather_rows(preds, propagator.mesh)
         return preds.cpu().numpy()
 
@@ -184,6 +207,27 @@ def _mean(x: torch.Tensor) -> torch.Tensor:
 
 def _nll(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -_mean(log_probs.gather(1, labels[:, None]))
+
+
+def loss_and_grads(model: MLP, x, propagator, idx: torch.Tensor,
+                   y: torch.Tensor, *, key, drop_prob: float,
+                   reg_lambda: float):
+    """One training step's loss (NLL on ``idx`` + ``reg_lambda/2·‖W₁‖²``)
+    and the weights' gradients, the same on every rank of a row-sharded
+    propagator: there the ranks' parts of the NLL's gradient are summed
+    in one all-reduce and the L2 term's added once after it
+    (``parallel/sharded.py``'s gradient rule)."""
+    params = [lin.weight for lin in model.layers]
+    logp = ppnp_forward(model, x, propagator, idx, key=key, train=True,
+                        drop_prob=drop_prob)
+    nll = _nll(logp, y)
+    loss = nll + (reg_lambda / 2.0) * l2_reg(model)
+    if not isinstance(propagator, RowSharded):
+        return loss, list(torch.autograd.grad(loss, params))
+    grads = all_reduce_sum(list(torch.autograd.grad(nll, params)),
+                           propagator.mesh)
+    grads[0] = grads[0] + reg_lambda * params[0].detach()
+    return loss, grads
 
 
 def _snapshot(model: MLP):
@@ -222,17 +266,18 @@ def train_model(
     """Train PPNP/APPNP on a graph on the propagator's device; returns
     (model, result_dict) with the keys of ``ppnp_tpu.train.train_model``.
 
-    ``dtype``: float32 only (``None`` or ``torch.float32``).
+    ``dtype``: float32 only (``None`` or ``torch.float32``). Under a
+    row-sharded propagator every rank calls it (module docstring).
     ``epoch_chunk`` groups epochs in ``chunk_times`` and fixes where
     ``checkpoint_every`` saves land, as in the JAX package.
     """
     if profile_dir is not None:
         raise NotImplementedError(PROFILE_TODO)
-    if isinstance(propagator, ShardedPowerIteration):
-        raise NotImplementedError(SHARDED_TRAIN_TODO)
     if dtype not in (None, torch.float32):
         raise NotImplementedError(BF16_TODO)
     torch.backends.cuda.matmul.allow_tf32 = False
+    sharded = isinstance(propagator, RowSharded)
+    log = logger.info if is_rank0() else logger.debug
     t_start = time.time()
     idx_split_args = dict(idx_split_args or default_idx_split_args)
     stop_args = dict(default_stopping_args)
@@ -244,8 +289,8 @@ def train_model(
         labels_np, idx_split_args, test=test)
 
     if x_prepared is not None:
-        _check_prepared_input(x_prepared, graph, x_format=x_format,
-                              x_dtype=x_dtype)
+        _check_prepared_input(x_prepared, graph, propagator,
+                              x_format=x_format, x_dtype=x_dtype)
         x = x_prepared
     else:
         x = prepare_attr_input(graph, propagator, x_format=x_format,
@@ -293,7 +338,7 @@ def train_model(
                      for i in range(len(params))],
                     float(es["best_acc"]), float(es["best_loss"]),
                     int(es["best_epoch"]))
-            logger.info("resumed from epoch %d", start_epoch)
+            log("resumed from epoch %d", start_epoch)
 
     def _save(epoch):
         from ppnp_tpu_torch import checkpoint as ckpt_mod
@@ -312,11 +357,10 @@ def train_model(
         })
 
     def run_epoch(epoch: int):
-        key = prng.fold_in(key_epochs, epoch)
-        logp = ppnp_forward(model, x, propagator, idx_train, key=key,
-                            train=True, drop_prob=drop_prob)
-        loss = _nll(logp, y_train) + (reg_lambda / 2.0) * l2_reg(model)
-        grads = torch.autograd.grad(loss, params)
+        loss, grads = loss_and_grads(
+            model, x, propagator, idx_train, y_train,
+            key=prng.fold_in(key_epochs, epoch), drop_prob=drop_prob,
+            reg_lambda=reg_lambda)
         optimizer.step(grads)
         with torch.no_grad():
             logp = ppnp_forward(model, x, propagator, idx_stop, train=False)
@@ -351,7 +395,7 @@ def train_model(
                               stopping_accuracy=acc,
                               stopping_loss=stop_loss)
             if print_interval and epoch % print_interval == 0:
-                logger.info(
+                log(
                     "epoch %4d: train loss %.4f, stopping acc %.4f "
                     "loss %.4f", epoch, loss, acc, stop_loss)
             if early_stopping.check([acc, stop_loss], epoch):
@@ -407,19 +451,20 @@ def train_model(
     # epoch moves ~3·K SpMMs (forward K, backward K, stopping eval K),
     # each touching the edge stream (nnz·8 B) and H in and out (2·n·c·4 B).
     # Only where there is an edge operator (not for exact PPNP).
+    # Not for a sharded propagator, as in the JAX package (it has no
+    # ``edges``).
     niter = getattr(propagator, "niter", None)
     op = getattr(propagator, "edges", None)
     if op is None:
         op = getattr(propagator, "csr", None)
-    if ema_chunk_s and niter and op is not None:
+    if ema_chunk_s and niter and op is not None and not sharded:
         bytes_per_step = op.nnz * 8 + 2 * x.shape[0] * n_classes * 4
         result["spmm_gbps"] = (epoch_chunk * 3 * niter * bytes_per_step
                                / ema_chunk_s / 1e9)
     if metrics is not None:
         metrics.write(event="final", **{
             k: v for k, v in result.items() if k != "predictions"})
-    logger.info(
-        "done: %d epochs (best %s), valtest acc %.4f f1 %.4f, %.1fs",
+    log("done: %d epochs (best %s), valtest acc %.4f f1 %.4f, %.1fs",
         nepochs, best_epoch,
         result["valtest"]["accuracy"], result["valtest"]["f1_score"],
         runtime)

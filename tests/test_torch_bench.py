@@ -284,19 +284,24 @@ def test_bench_cli_on_the_cpu(sbm800):
 
 
 def test_not_ported_parts_raise(sbm800):
-    """What still raises, naming its ROADMAP item: sharded training
-    (item 6), bfloat16 X (item 7), ``--profile`` (item 8); ``--layout``
-    is not a flag of the port's ``bench``. The blocked backend, ``bench
-    --blocked-scale`` and ``bench --scaling`` run."""
+    """What still raises, naming its ROADMAP item: bfloat16 X (item 7),
+    ``--profile`` (item 8); ``--layout`` is not a flag of the port's
+    ``bench``. The blocked backend, ``bench --blocked-scale``, ``bench
+    --scaling`` and the sharded training epoch (``bench --training
+    --propagation sharded``, world size 1 here) run."""
     res = tb.bench_propagation(dataset=sbm800, c=4, niter=2, iters=1,
                                backends=("blocked",), device=CPU)
     assert res["backends"]["blocked"]["steps_per_s"] > 0
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tb.bench_training(dataset=sbm800, propagation="sharded",
-                          device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_main(["bench", "--dataset", sbm800, "--training",
-                "--propagation", "sharded", "--device", "cpu"])
+    want = tb.bench_training(dataset=sbm800, backend="xla", epochs=2,
+                             device=CPU)
+    res = tb.bench_training(dataset=sbm800, backend="xla", epochs=2,
+                            propagation="sharded", device=CPU)
+    assert set(res) == set(want) and res["propagation"] == "sharded"
+    assert res["s_per_epoch"] > 0
+    res = _bench_cli(["--dataset", sbm800, "--training", "--epochs", "2",
+                      "--backends", "pallas", "--propagation", "sharded",
+                      "--device", "cpu"])
+    assert res["propagation"] == "sharded" and res["backend"] == "pallas"
     with pytest.raises(NotImplementedError, match="item 7"):
         tb.bench_training(dataset=sbm800, x_dtype="bfloat16", device=CPU)
     with pytest.raises(NotImplementedError, match="item 7"):

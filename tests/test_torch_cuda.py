@@ -652,3 +652,132 @@ def test_sharded_world_size_one_on_nccl_matches_the_cpu(dev):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "nccl world size 1: ok" in res.stdout
+
+
+@pytest.mark.parametrize("rows,width,row_offset", [
+    (4584, 64, 3 * 4584), (301, 6805, 1000), (200, 64, (2 ** 32 - 1000) // 16),
+    (37, 13, 5)])
+def test_dropout_masks_at_a_row_offset(dev, rows, width, row_offset):
+    """A rank's rows of a dense dropout, drawn from their flat word offset
+    (``row_offset·ceil(width/4)``; past 2^32 words the counter's high word
+    is set): bit-equal to the plain version on the CPU and to those rows
+    of the whole draw from offset 0."""
+    keys = prng.split(prng.PRNGKey(rows), 2)
+    off = row_offset * -(-width // 4)
+    got = dropout_masks(keys, (rows, width), 128, dev, off)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), dropout_masks_plain(keys, (rows, width),
+                                                      128, None, off))
+    if row_offset < 20000:
+        whole = dropout_masks(keys, (row_offset + rows, width), 128, dev)
+        assert torch.equal(got, whole[:, row_offset:])
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_sharded_sparse_fc1_matches_plain(dev, rank):
+    """A rank's row-sharded sparse fc1 (X_r through K1, its planes from
+    ``fold_in(key, rank)``) and dW (K1 on X_rᵀ) on the card against the
+    same on the CPU: the planes bit-equal, fc1 within 1e-5, dW within
+    rtol 1e-4 / atol 1e-5."""
+    from ppnp_tpu_torch.ops.sparse_input import build_sharded_sparse_input
+
+    x = _matrix(1000, 700, 0.01, 4)
+    cot = np.random.RandomState(1).randn(256, 64).astype(np.float32)
+    w = (0.1 * np.random.RandomState(2).randn(700, 64)).astype(np.float32)
+    key = prng.PRNGKey(8)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        xs = build_sharded_sparse_input(x, shard_rows=256, n_shards=4,
+                                        rank=rank, device=d)
+        planes = edge_masks([prng.fold_in(key, rank)], xs.csr, xs.csr_t,
+                            keep=0.5)
+        wt = torch.from_numpy(w).to(d).requires_grad_()
+        build.reset_launches()
+        z = xs.matmul(wt, key=key, train=True, drop_prob=0.5)
+        (z * torch.from_numpy(cot).to(d)).sum().backward()
+        out.append(([p.cpu() for p in planes], z.detach().cpu(),
+                    wt.grad.cpu(), dict(build.LAUNCHES)))
+    (p0, z0, g0, _), (p1, z1, g1, launches) = out
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert (launches["spmm_csr"], launches["spmm_csr_bwd"],
+            launches["edge_masks"]) == (1, 1, 1)
+    torch.testing.assert_close(z1, z0, **TOL)
+    torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-5)
+
+
+_NCCL_TRAIN_EPOCH = r"""
+import numpy as np, torch, torch.distributed as dist
+from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
+from ppnp_tpu_torch.kernels import build
+from ppnp_tpu_torch.models.appnp import init_mlp_params
+from ppnp_tpu_torch.ops import prng
+from ppnp_tpu_torch.ops.normalize import calc_A_hat
+from ppnp_tpu_torch.parallel.mesh import Mesh, make_mesh
+from ppnp_tpu_torch.parallel.partition import (build_sharded_csr,
+                                               build_sharded_graph)
+from ppnp_tpu_torch.parallel.sharded import ShardedPowerIteration
+from ppnp_tpu_torch.preprocessing import gen_splits
+from ppnp_tpu_torch.train import loss_and_grads, prepare_attr_input
+
+mesh = make_mesh(device="cuda")
+assert dist.get_backend() == "nccl" and mesh.world_size == 1
+cpu = torch.device("cpu")
+cpu_mesh = Mesh(group=dist.new_group(ranks=[0], backend="gloo"), rank=0,
+                world_size=1, device=cpu)
+graph = make_attributed_sbm(n_nodes=3000, n_classes=5, n_features=300,
+                            n_edges=15000, seed=2).standardize()
+sg = build_sharded_graph(calc_A_hat(graph.adj_matrix), 1)
+labels = np.asarray(graph.labels)
+idx, _, _ = gen_splits(labels, {"ntrain_per_class": 20, "nstopping": 200,
+                                "nknown": 800, "seed": 1})
+key_init, key_epochs = prng.split(prng.PRNGKey(0))
+for backend, x_format in (("pallas", "sparse"), ("pallas", "dense"),
+                          ("xla", "dense")):
+    res = []
+    for m in (cpu_mesh, mesh):
+        csr = (build_sharded_csr(sg, device=m.device)[0]
+               if backend == "pallas" else None)
+        prop = ShardedPowerIteration(graph=sg, mesh=m, csr=csr, alpha=0.1,
+                                     niter=10, drop_prob=0.5,
+                                     backend=backend)
+        x = prepare_attr_input(graph, prop, x_format=x_format)
+        model = init_mlp_params(x.shape[1], [64], int(labels.max()) + 1,
+                                key=key_init, device=m.device)
+        build.reset_launches()
+        loss, grads = loss_and_grads(
+            model, x, prop, torch.from_numpy(idx).to(m.device),
+            torch.from_numpy(labels[idx]).long().to(m.device),
+            key=prng.fold_in(key_epochs, 2), drop_prob=0.5, reg_lambda=5e-3)
+        res.append((loss.item(), [g.cpu() for g in grads],
+                    dict(build.LAUNCHES)))
+    (l0, g0, _), (l1, g1, launches) = res
+    np.testing.assert_allclose(l1, l0, rtol=1e-5, atol=1e-5)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    sparse = x_format == "sparse"
+    if backend == "pallas":
+        assert launches["spmm_csr"] == 20 + sparse, launches
+        assert launches["spmm_csr_bwd"] == 20 + sparse, launches
+    assert launches["dropout_mask"] == (1 + (not sparse)
+                                        + (backend == "xla")), launches
+dist.destroy_process_group()
+print("nccl sharded epoch: ok")
+"""
+
+
+def test_sharded_training_epoch_on_nccl_matches_the_cpu(dev):
+    """One sharded training epoch at world size 1 on NCCL (pallas with
+    sparse and with dense X, xla with dense X): the loss within 1e-5 and
+    the all-reduced weight gradients within rtol 1e-4 / atol 1e-5 of the
+    same epoch over gloo on the CPU, with its launch counts. In a process
+    of its own under a timeout."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _NCCL_TRAIN_EPOCH],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "nccl sharded epoch: ok" in res.stdout

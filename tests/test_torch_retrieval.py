@@ -170,9 +170,9 @@ def test_retrieve_topk_matches_jax(n, d, nq, k, dups):
 
 def test_sharded_retrieval_raises():
     """Sharded retrieval runs (here at world size 1; over 2 and 4 gloo
-    ranks in ``test_torch_sharded.py``) and equals ``retrieve_topk``;
-    what of the sharded path still raises is the hierarchical mesh
-    (ROADMAP item 6)."""
+    ranks in ``test_torch_sharded.py``) and equals ``retrieve_topk``; a
+    hierarchical mesh raises unless the group holds its D × I ranks (the
+    1 × 1 mesh builds here; 2 × 2 runs in ``test_torch_hier.py``)."""
     from ppnp_tpu_torch.parallel.mesh import make_hier_mesh, make_mesh
 
     rng = np.random.RandomState(4)
@@ -184,8 +184,13 @@ def test_sharded_retrieval_raises():
         s, i = fn(q, table, 3, mesh=mesh, n_valid=37)
         torch.testing.assert_close(s, want[0])
         assert torch.equal(i, want[1])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         make_hier_mesh(2, 1)
+    hmesh = make_hier_mesh(1, 1, device="cpu")
+    assert (hmesh.world_size, hmesh.n_slices, hmesh.per_slice) == (1, 1, 1)
+    s, i = retrieve_topk_sharded(q, table, 3, mesh=hmesh, n_valid=37)
+    assert torch.equal(i, want[1])
+    hmesh.destroy()
 
 
 @pytest.fixture(scope="module")

@@ -36,7 +36,7 @@ from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
 from ppnp_tpu_torch.metrics import TensorboardWriter
 from ppnp_tpu_torch.models.appnp import (MLP, init_mlp_params, l2_reg,
                                          params_from_jax, ppnp_forward)
-from ppnp_tpu_torch.ops.sparse_input import SparseInput
+from ppnp_tpu_torch.ops.sparse_input import ShardedSparseInput, SparseInput
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = torch.device("cpu")
@@ -210,10 +210,11 @@ def test_x_format_auto_rule(shape, density, sparse):
 
 def test_not_ported_options_raise(port_graph):
     """What is still to port raises, naming its ROADMAP item: bfloat16 X
-    (item 7); training with a sharded propagator, the row-sharded sparse
-    X (``ShardedSparseInput``) and ``--n-slices > 1`` (item 6); the
-    profiler and TensorBoard (item 8). The blocked and flat sharded
-    operators build (a world-size-1 process group here)."""
+    (item 7); the profiler and TensorBoard (item 8). The blocked and flat
+    sharded operators build (a world-size-1 process group here), a
+    sharded propagator trains, takes the row-sharded sparse X
+    (``ShardedSparseInput``), and ``--n-slices 2`` needs a group of a
+    multiple of 2 ranks."""
     graph = types.SimpleNamespace(attr_matrix=port_graph.attr_matrix)
     prop = types.SimpleNamespace(device=CPU)
     with pytest.raises(NotImplementedError, match="item 7"):
@@ -221,13 +222,17 @@ def test_not_ported_options_raise(port_graph):
     sharded = t_builders.build_propagator(
         TRunConfig(propagation="sharded"), port_graph, device="cpu")
     assert sharded.mesh.world_size == 1
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_train.train_model(port_graph, sharded)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_train.prepare_attr_input(port_graph, sharded, x_format="sparse")
+    _, res = t_train.train_model(
+        port_graph, sharded, stopping_args={"max_epochs": 2},
+        idx_split_args={"ntrain_per_class": 10, "nstopping": 60,
+                         "nknown": 200, "seed": 1}, print_interval=0)
+    assert res["last_epoch"] == 1 and res["x_format"] == "dense"
+    xs = t_train.prepare_attr_input(port_graph, sharded, x_format="sparse")
+    assert isinstance(xs, ShardedSparseInput) and xs.rank == 0
+    assert xs.shape == (sharded.n_rows, port_graph.attr_matrix.shape[1])
     assert not isinstance(t_train.prepare_attr_input(port_graph, sharded),
                           SparseInput)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="not divisible"):
         t_builders.build_propagator(
             TRunConfig(propagation="sharded", n_slices=2), port_graph,
             device="cpu")
