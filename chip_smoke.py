@@ -104,12 +104,36 @@ order; any failure exits non-zero and nothing is caught:
    directly, bit-equal to the flat world-size-1 arm in eval and train
    mode on both arms, serving the checkpoint (K K1 launches a request
    on pallas) with the flat sharded ``predict``'s predictions;
-13. print one ``{"kernels": [...]}`` line (launches per path, the
+13. bf16 X and tracing, MS Academic at full width: fc1 as the f32
+   product and as the mixed bf16 one (bf16 operands, f32 sums), its dW
+   (X upcast, f32 product, rounded to bf16) and the dense dropout of X
+   in f32 and bf16, each in device ms beside its bound (bf16 operations
+   at BF16_FLOPS), held card against CPU (forward within rtol 1e-5, dW
+   equal or one bf16 ulp apart, the bf16 dropout bit-equal) and the
+   forward asserted to be one product of bf16 operands with no f32 copy
+   of X; ``train --x-format dense --x-dtype bfloat16`` (20 epochs on
+   pallas and fused, 4 on xla) beside the same runs on dense f32 X and
+   phase 5's sparse f32 epochs, launch counts asserted; one bf16 epoch
+   card vs CPU; ``predict --x-dtype bfloat16`` of the trained
+   checkpoint against the CPU port's argmax (≥ 0.999) and against f32
+   X; the batched bf16 sweep (G = 10) with its peak memory, and one
+   batched epoch card vs CPU at Citeseer's size; a sharded bf16 epoch
+   (world size 1, NCCL) card vs CPU; ``train --profile DIR --tensorboard
+   DIR2`` over two chunks on pallas and fused (each trace parsed, its
+   kernels and ``ppnp/*`` spans found, the K1 events kept counted
+   against those launched; TensorBoard scalars equal to the JSONL rows
+   where tensorboard imports), ``bench --training --profile``, the host
+   µs of one ``annotate`` span with the profiler off and on, and the
+   fused arm's request ms beside phase 4's; prints the records as one
+   ``{"library_products": ...}`` line;
+14. print one ``{"kernels": [...]}`` line (launches per path, the
    ``retrieve <arm>``, ``bench <name>``, ``predict blocked``, ``train
    blocked``, ``bench blocked``, ``predict sharded <arm>``, ``bench
-   scaling <arm>``, ``train sharded <arm> <X layout>`` and ``predict
-   hier <arm>`` paths included), then the card line, then ``{"ok":
-   true, "device": {...}}`` as the last line.
+   scaling <arm>``, ``train sharded <arm> <X layout>``, ``predict
+   hier <arm>``, ``train dense <dtype> <arm>``, ``reproduce bf16
+   pallas``, ``train profile <arm>`` and ``bench training profile``
+   paths included), then the card line, then ``{"ok": true, "device":
+   {...}}`` as the last line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout (the package is imported from the checkout). With
@@ -121,6 +145,7 @@ kernels on one card.
 import contextlib
 import io
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -939,7 +964,7 @@ def grouped_kernel_phase(dev):
 
 def serving_path(dev):
     """Phase 4: ``predict`` through every backend; returns launch counts
-    per backend."""
+    per backend and each backend's request ms."""
     from ppnp_tpu_torch.__main__ import main as cli_main
     from ppnp_tpu_torch.builders import build_propagator, load_graph
     from ppnp_tpu_torch.checkpoint import save_checkpoint
@@ -1032,7 +1057,7 @@ def serving_path(dev):
     print(f"log-probs fused vs pallas: {'bit-equal' if same else 'differ'}")
     if not same:
         raise SystemExit("log-probs of the fused and pallas arms differ")
-    return launches
+    return launches, request_ms
 
 
 def launches_per_epoch(backend: str, niter: int) -> dict:
@@ -1198,7 +1223,10 @@ def profile_epochs(dev, backend: str, reps: int = 5) -> None:
             epoch(e)
         wall = (time.perf_counter() - t0) * 1e3 / reps
     events = prof.key_averages()
-    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    # the ppnp/* spans (``profiling.annotate``) are device-side regions,
+    # not device work: left out of the busy sum
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     busy = sum(e.device_time_total for e in on_card) / 1e3 / reps
     top_dev = sorted(on_card, key=lambda e: -e.device_time_total)[:4]
     on_host = [e for e in events if e.device_type == DeviceType.CPU]
@@ -1275,7 +1303,8 @@ def profile_requests(model, x, prop, reps: int = REQUESTS):
             get_predictions(model, x, prop)
         wall = (time.perf_counter() - t0) * 1e3 / reps
     on_card = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     busy = sum(e.device_time_total for e in on_card) / 1e3 / reps
     top = sorted(on_card, key=lambda e: -e.device_time_total)[:4]
     return wall, busy, [(e.key[:48], e.count // reps,
@@ -1466,7 +1495,8 @@ def profile_batched_epochs(dev, backend: str, epochs=(2, 7)) -> None:
             wall = (time.perf_counter() - t0) * 1e3
         runs.append((wall, {ev.key: (ev.count, ev.device_time_total / 1e3)
                             for ev in prof.key_averages()
-                            if ev.device_type == DeviceType.CUDA}))
+                            if ev.device_type == DeviceType.CUDA
+                            and not ev.is_user_annotation}))
     d = epochs[1] - epochs[0]
     (w0, k0), (w1, k1) = runs
     per = {k: ((k1.get(k, (0, 0))[0] - k0.get(k, (0, 0))[0]) / d,
@@ -2282,11 +2312,14 @@ def sharded_training_path(dev, unsharded_ms: float):
     return launches
 
 
-def sharded_epoch_card_vs_cpu(dev, backend: str, x_format: str) -> None:
+def sharded_epoch_card_vs_cpu(dev, backend: str, x_format: str,
+                              x_dtype=None) -> None:
     """One sharded training epoch's loss and all-reduced weight gradients
     on the card (world size 1, NCCL) against the same epoch on the CPU
     (world size 1 on a gloo group of the same process), from the same key
-    and weights."""
+    and weights. With bf16 X the loss is the NLL alone (no L2 term), so
+    that the summed dW₁, rounded to bf16 after the all-reduce, is held
+    equal or one bf16 ulp apart (``assert_bf16_ulp``)."""
     import torch.distributed as dist
 
     from ppnp_tpu_torch.builders import load_graph, resolve_alpha
@@ -2312,7 +2345,7 @@ def sharded_epoch_card_vs_cpu(dev, backend: str, x_format: str) -> None:
     gloo = dist.new_group(ranks=[0], backend="gloo")
     meshes = (Mesh(group=gloo, rank=0, world_size=1, device=cpu),
               make_mesh(device=dev))
-    out = []
+    out, raw = [], []
     for mesh in meshes:
         d = mesh.device
         csr = (build_sharded_csr(sg, shards=[0], device=d)[0]
@@ -2320,21 +2353,36 @@ def sharded_epoch_card_vs_cpu(dev, backend: str, x_format: str) -> None:
         prop = ShardedPowerIteration(
             graph=sg, mesh=mesh, csr=csr, alpha=resolve_alpha(cfg),
             niter=cfg.niter, drop_prob=cfg.drop_prob, backend=backend)
-        x = prepare_attr_input(graph, prop, x_format=x_format)
+        x = prepare_attr_input(graph, prop, x_format=x_format,
+                               x_dtype=x_dtype)
         model = init_mlp_params(x.shape[1], [HIDDEN], int(labels.max()) + 1,
                                 key=key_init, device=d)
-        loss, grads = loss_and_grads(
-            model, x, prop, torch.from_numpy(idx).to(d),
-            torch.from_numpy(labels[idx]).long().to(d),
-            key=prng.fold_in(key_epochs, 3), drop_prob=cfg.drop_prob,
-            reg_lambda=cfg.reg_lambda)
+
+        def epoch():
+            return loss_and_grads(
+                model, x, prop, torch.from_numpy(idx).to(d),
+                torch.from_numpy(labels[idx]).long().to(d),
+                key=prng.fold_in(key_epochs, 3), drop_prob=cfg.drop_prob,
+                reg_lambda=0.0 if x_dtype else cfg.reg_lambda)
+
+        loss, grads = epoch()
+        if x_dtype:
+            with unrounded():
+                raw.append(epoch()[1][0].cpu())
         out.append((loss.item(), [g.cpu() for g in grads]))
     dist.destroy_process_group(gloo)
     (l_cpu, g_cpu), (l_card, g_card) = out
     err = [float((a - b).abs().max()) for a, b in zip(g_card, g_cpu)]
-    print(f"one sharded epoch ({backend}, {x_format} X) card vs CPU: loss "
-          f"{l_card:.7f} vs {l_cpu:.7f}, grad max_abs_err {err}")
+    dtype = f" in {x_dtype}" if x_dtype else ""
+    print(f"one sharded epoch ({backend}, {x_format} X{dtype}) card vs CPU: "
+          f"loss {l_card:.7f} vs {l_cpu:.7f}, grad max_abs_err {err}")
     np.testing.assert_allclose(l_card, l_cpu, rtol=RTOL, atol=ATOL)
+    if x_dtype:
+        apart = assert_bf16_ulp("sharded dW1", g_card[0], g_cpu[0],
+                                raw=raw[::-1])
+        print(f"  summed dW1 rounded to bf16: {apart} of "
+              f"{g_cpu[0].numel()} entries one bf16 ulp apart")
+        g_card, g_cpu = g_card[1:], g_cpu[1:]
     for a, b in zip(g_card, g_cpu):
         torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
@@ -2426,6 +2474,574 @@ def hier_path(dev):
     return launches
 
 
+BF16_FLOPS = 989e12   # H100 SXM bf16 dense tensor-core peak (NVIDIA data sheet)
+BF16_EPOCHS = {"pallas": 20, "fused": 20, "xla": 4}   # dense bf16 X
+BF16_SWEEP_EPOCHS = 3    # batched sweep, G = 10, dense bf16 X
+PROFILE_EPOCHS = 60      # two chunks of 50: the second one is traced
+BF16_APART = 0.01        # dW1: at most this share one bf16 ulp apart
+
+
+def assert_bf16_ulp(name: str, card: torch.Tensor, cpu: torch.Tensor,
+                    raw=None) -> int:
+    """``card`` and ``cpu`` are bf16 values held in f32 (a rounded dW),
+    equal or one bf16 ulp apart beyond the difference of the unrounded
+    f32 sums ``raw`` = (card's, CPU's), which are held within rtol 1e-4 /
+    atol 1e-5 (summation order; where the sum cancels, the order moves
+    it by more than a bf16 ulp of the result), and at most BF16_APART of
+    them apart; returns the count apart."""
+    card, cpu = card.cpu(), cpu.cpu()
+    for t in (card, cpu):
+        if not torch.equal(t, t.bfloat16().float()):
+            raise SystemExit(f"{name}: not rounded to bf16")
+    slack = 0.0
+    if raw is not None:
+        u_card, u_cpu = raw[0].cpu(), raw[1].cpu()
+        torch.testing.assert_close(u_card, u_cpu, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
+        slack = (u_card - u_cpu).abs()
+    apart = card != cpu
+    ulp = torch.maximum(card.abs(), cpu.abs()) * 2.0 ** -7 + slack
+    if bool(((card - cpu).abs() > ulp)[apart].any()) \
+            or float(apart.float().mean()) > BF16_APART:
+        raise SystemExit(f"{name}: {int(apart.sum())} entries apart, some "
+                         "by more than one bf16 ulp beyond the unrounded "
+                         f"difference, or more than {BF16_APART} of them")
+    return int(apart.sum())
+
+
+@contextlib.contextmanager
+def unrounded():
+    """The mixed fc1's weight gradient left unrounded (``round_like`` the
+    identity, where the backward and ``loss_and_grads`` read it): the f32
+    sums that ``assert_bf16_ulp`` compares before the rounding."""
+    from ppnp_tpu_torch import train
+    from ppnp_tpu_torch.ops import mixed
+
+    saved = mixed.round_like, train.round_like
+    mixed.round_like = train.round_like = lambda dw, dtype: dw
+    try:
+        yield
+    finally:
+        mixed.round_like, train.round_like = saved
+
+
+def bf16_launches_per_epoch(backend: str, niter: int) -> dict:
+    """Kernel launches of one training epoch with dense X (either dtype):
+    fc1 is a library product, so K1 runs only in the propagation (pallas:
+    K forward, K backward, K in the stopping eval; fused: K3 and its
+    adjoint); Â's K planes one edge_masks launch; X's dropout and the
+    hidden layer's one dropout_mask launch each, and on the xla arm a
+    third draws the K step masks."""
+    per = {"dropout_mask": 2 + (backend == "xla")}
+    if backend == "pallas":
+        per.update(spmm_csr=2 * niter, spmm_csr_bwd=niter, edge_masks=1)
+    elif backend == "fused":
+        per.update(appnp_fused=2, appnp_adjoint=1, edge_masks=1)
+    return per
+
+
+DENSE_FINAL_EVAL = {"pallas": {"spmm_csr": 10}, "fused": {"appnp_fused": 1},
+                    "xla": {}}
+
+
+def run_train(dev, args, name: str, epochs: int):
+    """``train`` in process, dense X, with the launch counts set to 0 just
+    before and read just after, asserted per epoch; returns (launches,
+    result, epoch rows, ms per epoch on the host clock)."""
+    from ppnp_tpu_torch.__main__ import main as cli_main
+    from ppnp_tpu_torch.kernels import build
+
+    ckpt = ROOT / "build" / "chip_smoke" / name.replace(" ", "_")
+    metrics = ckpt.with_suffix(".jsonl")
+    if metrics.exists():
+        metrics.unlink()
+    backend = args[args.index("--backend") + 1]
+    buf = io.StringIO()
+    build.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["train", "--dataset", DATASET, "--x-format", "dense",
+                       *args, "--device", str(dev), "--max-epochs",
+                       str(epochs), "--patience", "1000", "--print-interval",
+                       "0", "--checkpoint-dir", str(ckpt), "--metrics-out",
+                       str(metrics)])
+    got = dict(build.LAUNCHES)
+    if rc != 0:
+        raise SystemExit(f"{name} exited {rc}")
+    res = json.loads(buf.getvalue())
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    rows = [r for r in rows if r["event"] == "epoch"]
+    losses = [r["train_loss"] for r in rows]
+    per = bf16_launches_per_epoch(backend, res["config"]["niter"])
+    want = {k: per.get(k, 0) * epochs
+            + DENSE_FINAL_EVAL[backend].get(k, 0) for k in got}
+    if got != want or len(rows) != epochs or res["x_format"] != "dense":
+        raise SystemExit(f"{name}: {len(rows)} epochs, x_format "
+                         f"{res['x_format']}, launches {got}, expected "
+                         f"{want}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit(f"{name}: loss not finite and falling: {losses}")
+    ms = float(np.median(np.diff([r["ts"] for r in rows][1:]))) * 1e3
+    return got, res, rows, ms
+
+
+def fc1_records(dev):
+    """The bf16 fc1 and its neighbours at MS Academic's full width, each
+    timed in device ms (``queued_ms``) beside its bound
+    (max(bytes / HBM rate, operations / peak of their type)): the f32
+    product (TF32 off) and the mixed bf16 one (bf16 operands, f32 sums:
+    ``torch.mm(..., out_dtype=float32)``), each beside its plain
+    version; dW as f32 product and as the port's backward (X upcast to
+    f32, f32 product, rounded to bf16), with the bytes the upcast adds;
+    dense dropout of X in f32 and in bf16. Holds the card against the
+    CPU: forward within rtol 1e-5, dW equal or one bf16 ulp apart, bf16
+    dropout bit-equal; and that the forward ran on bf16 operands with no
+    f32 copy of X."""
+    import types
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ppnp_tpu_torch.builders import load_graph
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.models.appnp import init_mlp_params
+    from ppnp_tpu_torch.ops import mixed, prng
+    from ppnp_tpu_torch.ops.dropout import dropout
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    graph = load_graph(RunConfig(dataset=DATASET))
+    here = types.SimpleNamespace(device=dev)
+    x32 = prepare_attr_input(graph, here, x_format="dense")
+    x16 = prepare_attr_input(graph, here, x_format="dense",
+                             x_dtype="bfloat16")
+    n, f = x16.shape
+    h = HIDDEN
+    w = init_mlp_params(f, [h], 2, key=prng.PRNGKey(4),
+                        device=dev).layers[0].weight.detach().t()
+    g = torch.from_numpy(np.random.RandomState(5).randn(n, h).astype(
+        np.float32) * 1e-4).to(dev)
+    flops = 2.0 * n * f * h
+    small = (f * h + n * h) * 4        # W in, the product out (f32)
+    recs = {}
+
+    def rec(name, fn, plain, bytes_moved, peak, err=None, **extra):
+        b_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / peak) * 1e3
+        by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= flops / peak \
+            else "operations"
+        r = dict(ms=queued_ms(fn)[0], bound_ms=b_ms, bound_by=by,
+                 plain_ms=None if plain is None else time_ms(plain),
+                 max_abs_err=err, **extra)
+        recs[name] = r
+        print(f"{name}: " + " ".join(f"{k}={v}" for k, v in r.items()))
+
+    with torch.no_grad():
+        out16 = mixed.mixed_matmul(x16, w)
+        ref16 = mixed.mixed_matmul(x16.cpu(), w.cpu())
+        torch.cuda.synchronize()
+        err = float((out16.cpu() - ref16).abs().max())
+        torch.testing.assert_close(out16.cpu(), ref16, rtol=1e-5, atol=1e-7)
+
+        class OpLog(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.ops = []
+
+            def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                self.ops.append((str(func), [
+                    (a.dtype, tuple(a.shape)) for a in args
+                    if isinstance(a, torch.Tensor)], out.dtype,
+                    tuple(out.shape)))
+                return out
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with OpLog() as log:
+            mixed.mixed_matmul(x16, w)
+        torch.cuda.synchronize()
+        extra_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+        mm = [o for o in log.ops if o[0] == "aten.mm.dtype"]
+        big_f32 = [o for o in log.ops if o[3] == (n, f)
+                   and o[2] == torch.float32]
+        print(f"fc1 bf16 forward ops on the card: {log.ops}; peak memory "
+              f"above the inputs {extra_mb:.2f} MB")
+        if len(mm) != 1 or mm[0][1] != [(torch.bfloat16, (n, f)),
+                                        (torch.bfloat16, (f, h))] \
+                or mm[0][2] != torch.float32 or big_f32 \
+                or extra_mb > n * f * 4 / 2e6:
+            raise SystemExit("fc1 bf16 forward did not run as one product "
+                             "of bf16 operands into f32")
+        rec("fc1 f32 (torch.mm, TF32 off)", lambda: torch.mm(x32, w), None,
+            n * f * 4 + small, F32_FLOPS)
+        rec("fc1 bf16 (mm out_dtype=f32)", lambda: mixed.mixed_matmul(x16, w),
+            lambda: torch.matmul(x16.float(), w.bfloat16().float()),
+            n * f * 2 + small, BF16_FLOPS, err)
+
+        def backward(x, gr, round_dw=True):
+            return mixed._MixedMatmul.backward(types.SimpleNamespace(
+                saved_tensors=(x,), round_dw=round_dw), gr)[1]
+
+        ctx = types.SimpleNamespace(saved_tensors=(x16,), round_dw=True)
+        dw, dw_cpu = backward(x16, g), backward(x16.cpu(), g.cpu())
+        apart = assert_bf16_ulp("fc1 bf16 dW", dw, dw_cpu, raw=(
+            backward(x16, g, False), backward(x16.cpu(), g.cpu(), False)))
+        print(f"fc1 bf16 dW card vs CPU: {apart} of {dw.numel()} entries one "
+              "bf16 ulp apart, the rest equal")
+        rec("dW f32 (Xᵀ·G, torch.mm)", lambda: torch.mm(x32.t(), g), None,
+            n * f * 4 + small, F32_FLOPS)
+        rec("dW bf16 (upcast, f32 mm, rounded)",
+            lambda: mixed._MixedMatmul.backward(ctx, g), None,
+            n * f * 2 + small, F32_FLOPS,
+            float((dw.cpu() - dw_cpu).abs().max()),
+            upcast_extra_bytes=8 * n * f,
+            upcast_ms=time_ms(lambda: x16.float()))
+
+        key = prng.PRNGKey(6)
+        part = dropout(key, x16[:2048], 0.5)
+        whole = dropout(key, x16, 0.5)
+        cpu = dropout(key, x16[:2048].cpu(), 0.5)
+        torch.cuda.synchronize()
+        same = (torch.equal(part.cpu().view(torch.int16),
+                            cpu.view(torch.int16))
+                and torch.equal(whole[:2048], part)
+                and whole.dtype == torch.bfloat16)
+        print(f"dropout of bf16 X, rows [0, 2048) card vs CPU: "
+              f"{'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            raise SystemExit("dropout of bf16 X: card and CPU differ")
+        words = n * -(-f // 4)
+        for name, x, size in (("dropout f32 X", x32, 4),
+                              ("dropout bf16 X", x16, 2)):
+            t_bytes = 2 * n * f * size / HBM_BYTES_PER_S
+            lanes, imad = draw_ops(words, DRAW_BOTH)
+            t_ops = max(lanes / INT32_OPS, (lanes + imad) / ISSUE_OPS)
+            r = dict(ms=queued_ms(lambda: dropout(key, x, 0.5))[0],
+                     bound_ms=max(t_bytes, t_ops) * 1e3,
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     plain_ms=None, max_abs_err=0.0)
+            recs[name] = r
+            print(f"{name}: " + " ".join(f"{k}={v}" for k, v in r.items()))
+    return recs
+
+
+def bf16_epoch_card_vs_cpu(dev) -> None:
+    """One training epoch on bf16 X, pallas arm, on the card against the
+    same epoch on the CPU from the same key and weights: the loss within
+    1e-5, the NLL's dW₁ equal or one bf16 ulp apart, the other gradients
+    within rtol 1e-4 / atol 1e-5."""
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.models.appnp import (init_mlp_params, l2_reg,
+                                             ppnp_forward)
+    from ppnp_tpu_torch.ops import prng
+    from ppnp_tpu_torch.preprocessing import gen_splits
+    from ppnp_tpu_torch.train import (_nll, default_idx_split_args,
+                                      prepare_attr_input)
+
+    cfg = RunConfig(dataset=DATASET, backend="pallas")
+    graph = load_graph(cfg)
+    labels = np.asarray(graph.labels)
+    idx, _, _ = gen_splits(labels, default_idx_split_args)
+    key_init, key_epochs = prng.split(prng.PRNGKey(0))
+    out, raw = [], []
+    for d in (torch.device("cpu"), dev):
+        prop = build_propagator(cfg, graph, device=d)
+        x = prepare_attr_input(graph, prop, x_format="dense",
+                               x_dtype="bfloat16")
+        model = init_mlp_params(x.shape[1], [HIDDEN], int(labels.max()) + 1,
+                                key=key_init, device=d)
+
+        def nll_grads():
+            logp = ppnp_forward(model, x, prop, torch.from_numpy(idx).to(d),
+                                key=prng.fold_in(key_epochs, 3), train=True)
+            nll = _nll(logp, torch.from_numpy(labels[idx]).long().to(d))
+            return nll, torch.autograd.grad(nll, list(model.parameters()))
+
+        nll, grads = nll_grads()
+        with unrounded():
+            raw.append(nll_grads()[1][0])
+        loss = nll + 5e-3 / 2.0 * l2_reg(model)
+        out.append((loss.item(), [gr.cpu() for gr in grads]))
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    apart = assert_bf16_ulp("one bf16 epoch dW1", g_card[0], g_cpu[0],
+                            raw=raw[::-1])
+    err = [float((a - b).abs().max()) for a, b in zip(g_card, g_cpu)]
+    print(f"one epoch (pallas, dense bf16 X) card vs CPU: loss "
+          f"{l_card:.7f} vs {l_cpu:.7f}; NLL dW1 {apart} of "
+          f"{g_cpu[0].numel()} entries one bf16 ulp apart; grad "
+          f"max_abs_err {err}")
+    np.testing.assert_allclose(l_card, l_cpu, rtol=RTOL, atol=ATOL)
+    for a, b in zip(g_card[1:], g_cpu[1:]):
+        torch.testing.assert_close(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def batched_epoch_card_vs_cpu(dev, dataset: str = "citeseer") -> None:
+    """One batched epoch (G = 10 seeds, dense bf16 X, pallas arm) at
+    Citeseer's size on the card against the CPU: per-seed losses within
+    1e-5, each seed's dW₁ equal or one bf16 ulp apart, the other
+    gradients within rtol 1e-4 / atol 1e-5."""
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.models.appnp import init_mlp_params
+    from ppnp_tpu_torch.multiseed import _nll_g, grouped_forward
+    from ppnp_tpu_torch.ops import prng
+    from ppnp_tpu_torch.preprocessing import gen_splits
+    from ppnp_tpu_torch.reproduce import DEFAULT_SEEDS
+    from ppnp_tpu_torch.train import (default_idx_split_args,
+                                      prepare_attr_input)
+
+    cfg = RunConfig(dataset=dataset, backend="pallas")
+    graph = load_graph(cfg)
+    labels = np.asarray(graph.labels)
+    seeds = DEFAULT_SEEDS
+    idx = np.stack([gen_splits(labels, dict(default_idx_split_args,
+                                            seed=s & 0x7FFFFFFF))[0]
+                    for s in seeds])
+    keys = prng.fold_in(np.stack([prng.split(prng.PRNGKey(s))[1]
+                                  for s in seeds]), 2)
+    out, raw = [], []
+    for d in (torch.device("cpu"), dev):
+        prop = build_propagator(cfg, graph, device=d)
+        x = prepare_attr_input(graph, prop, x_format="dense",
+                               x_dtype="bfloat16")
+        models = [init_mlp_params(x.shape[1], [HIDDEN],
+                                  int(labels.max()) + 1,
+                                  key=prng.split(prng.PRNGKey(s))[0],
+                                  device="cpu") for s in seeds]
+        params = [torch.stack([m.layers[i].weight.t() for m in models])
+                  .detach().to(d).requires_grad_() for i in range(2)]
+
+        def epoch():
+            logp = grouped_forward(params, x, prop,
+                                   torch.from_numpy(idx).to(d), keys,
+                                   train=True, groups=len(seeds))
+            loss = _nll_g(logp, torch.from_numpy(labels[idx]).long().to(d))
+            return loss, torch.autograd.grad(loss.sum(), params)
+
+        loss, grads = epoch()
+        with unrounded():
+            raw.append(epoch()[1][0].cpu())
+        out.append((loss.detach().cpu(), [gr.cpu() for gr in grads]))
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    apart = sum(assert_bf16_ulp(f"batched dW1 seed {s}", g_card[0][i],
+                                g_cpu[0][i], raw=(raw[1][i], raw[0][i]))
+                for i, s in enumerate(seeds))
+    print(f"one batched epoch ({dataset}, G={len(seeds)}, dense bf16 X) card "
+          f"vs CPU: losses max_abs_err "
+          f"{float((l_card - l_cpu).abs().max()):.3g}; dW1 {apart} of "
+          f"{g_cpu[0].numel()} entries one bf16 ulp apart")
+    torch.testing.assert_close(l_card, l_cpu, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(g_card[1], g_cpu[1], rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+
+
+def trace_events(path):
+    """The events of a Chrome-trace JSON written by ``profiling.trace``
+    (it must parse)."""
+    return json.loads(Path(path).read_text())["traceEvents"]
+
+
+def kernel_events(events, kernel: str) -> int:
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and kernel in e.get("name", ""))
+
+
+def tensorboard_scalars(logdir):
+    """The scalars of a TensorBoard log dir by tag, (step, value) pairs;
+    None where tensorboard cannot be imported."""
+    try:
+        from tensorboard.backend.event_processing.event_accumulator import \
+            EventAccumulator
+    except ImportError:
+        return None
+    acc = EventAccumulator(str(logdir))
+    acc.Reload()
+    return {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+            for tag in acc.Tags()["scalars"]}
+
+
+def tracing_runs(dev, fused_request_ms):
+    """``train --profile DIR --tensorboard DIR2`` over two chunks of 50
+    epochs on the pallas and fused arms (dense bf16 X; the second chunk
+    traced): each trace parses and holds the ``ppnp/*`` spans and its
+    kernels (spmm_rows_kernel, appnp_fused_kernel), the kept K1 events
+    counted against the launches of the traced epochs; the TensorBoard
+    scalars equal the JSONL rows where tensorboard imports; then ``bench
+    --training --profile``, the host µs of one ``annotate`` span with the
+    profiler off and on, and the fused arm's request ms beside phase 4's.
+    Returns launch counts per path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppnp_tpu_torch.__main__ import main as cli_main
+    from ppnp_tpu_torch.kernels import build
+    from ppnp_tpu_torch.profiling import annotate
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    launches = {}
+    importable = tensorboard_scalars(out_dir) is not None
+    print(f"tensorboard importable: {importable}")
+    traced = PROFILE_EPOCHS - 50
+    for b, kernel in (("pallas", "spmm_rows_kernel"),
+                      ("fused", "appnp_fused_kernel")):
+        prof, tb = out_dir / f"profile_{b}", out_dir / f"tb_{b}"
+        for d in (prof, tb):
+            if d.exists():
+                shutil.rmtree(d)
+        name = f"train profile {b}"
+        got, res, rows, ms = run_train(
+            dev, ["--backend", b, "--x-dtype", "bfloat16", "--profile",
+                  str(prof), "--tensorboard", str(tb)], name, PROFILE_EPOCHS)
+        launches[name] = got
+        events = trace_events(prof / "trace_rank0.json")
+        spans = {e.get("name") for e in events}
+        per = bf16_launches_per_epoch(b, res["config"]["niter"])
+        want = traced * (per.get("spmm_csr", 0) + per.get("spmm_csr_bwd", 0)
+                         if b == "pallas" else per["appnp_fused"])
+        kept = kernel_events(events, kernel)
+        print(f"{name}: trace {len(events)} events, {kernel} events kept "
+              f"{kept} of {want} launched in the {traced} traced epochs; "
+              f"spans ppnp/mlp {'ppnp/mlp' in spans}, ppnp/propagate "
+              f"{'ppnp/propagate' in spans}; ms/epoch {ms:.3f}")
+        if not kept or not {"ppnp/mlp", "ppnp/propagate"} <= spans:
+            raise SystemExit(f"{name}: the trace lacks {kernel} events or "
+                             "the ppnp/* spans")
+        scalars = tensorboard_scalars(tb)
+        if importable:
+            want_tb = {k: [(r["epoch"], float(np.float32(r[k])))
+                           for r in rows]
+                       for k in ("train_loss", "stopping_accuracy",
+                                 "stopping_loss")}
+            if scalars != want_tb:
+                raise SystemExit(f"{name}: TensorBoard scalars differ from "
+                                 "the JSONL rows")
+            print(f"{name}: TensorBoard scalars equal the JSONL rows "
+                  f"({len(rows)} epochs x 3 tags)")
+
+    prof = out_dir / "profile_bench"
+    if prof.exists():
+        shutil.rmtree(prof)
+    buf = io.StringIO()
+    build.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["bench", "--training", "--dataset", DATASET,
+                       "--backends", "pallas", "--x-format", "dense",
+                       "--x-dtype", "bfloat16", "--epochs", "4",
+                       "--profile", str(prof), "--device", str(dev)])
+    launches["bench training profile"] = dict(build.LAUNCHES)
+    res = json.loads(buf.getvalue())
+    events = trace_events(prof / "trace_rank0.json")
+    kept = kernel_events(events, "spmm_rows_kernel")
+    print(f"bench --training --profile: x_dtype {res['x_dtype']}, "
+          f"{res['s_per_epoch'] * 1e3:.3f} ms/epoch under the profiler, "
+          f"trace {len(events)} events, spmm_rows_kernel {kept}")
+    if rc != 0 or res["x_dtype"] != "bfloat16" or not kept:
+        raise SystemExit("bench --training --profile failed")
+
+    def span_us(reps=20000):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            with annotate("ppnp/mlp"):
+                pass
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    off = span_us()
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = span_us()
+    print(f"annotate span, host us: profiler off {off:.3f}, on {on:.3f}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["predict", "--dataset", DATASET, "--backend", "fused",
+                       "--device", str(dev), "--checkpoint-dir", str(out_dir),
+                       "--requests", str(REQUESTS)])
+    now = json.loads(buf.getvalue())["request_ms"]
+    print(f"predict --backend fused request_ms now {[round(t, 3) for t in now]}"
+          f" beside phase 4's {[round(t, 3) for t in fused_request_ms]}")
+    if rc != 0:
+        raise SystemExit("predict fused exited non-zero")
+    return launches
+
+
+def bf16_path(dev, epoch_ms, fused_request_ms):
+    """bf16 X and tracing, MS Academic at full width: the fc1 records;
+    ``train --x-format dense --x-dtype bfloat16`` on every arm beside the
+    dense f32 epoch and phase 5's sparse f32 one; one epoch card vs CPU;
+    ``predict --x-dtype bfloat16`` of the trained checkpoint against the
+    CPU port's and against f32 X; the batched bf16 sweep (G = 10) with
+    its peak memory, and one batched epoch card vs CPU at Citeseer's
+    size; a sharded bf16 epoch at world size 1 on NCCL card vs CPU; then
+    the tracing runs. Returns (fc1 records, launch counts per path)."""
+    from ppnp_tpu_torch.__main__ import main as cli_main
+    from ppnp_tpu_torch.reproduce import DEFAULT_SEEDS
+
+    recs = fc1_records(dev)
+    launches, ms = {}, {}
+    for b, epochs in BF16_EPOCHS.items():
+        for dtype in ("bfloat16", "float32"):
+            name = f"train dense {dtype} {b}"
+            got, res, rows, ms[(b, dtype)] = run_train(
+                dev, ["--backend", b, "--x-dtype", dtype], name, epochs)
+            launches[name] = got
+            print(f"{name}: {epochs} epochs, loss {rows[0]['train_loss']:.4f}"
+                  f" -> {rows[-1]['train_loss']:.4f}, valtest acc "
+                  f"{res['valtest']['accuracy']:.4f}, launches {got}")
+        print(f"ms per epoch ({b}, host clock, median of epochs "
+              f"2..{epochs - 1}): dense bf16 {ms[(b, 'bfloat16')]:.3f}, "
+              f"dense f32 {ms[(b, 'float32')]:.3f}, sparse f32 (phase 5) "
+              f"{epoch_ms[b]:.3f}")
+    bf16_epoch_card_vs_cpu(dev)
+
+    ckpt = ROOT / "build" / "chip_smoke" / "train_dense_bfloat16_pallas"
+    preds = {}
+    for d, dtype in ((dev, "bfloat16"), ("cpu", "bfloat16"),
+                     (dev, "float32")):
+        out_npz = ckpt.with_name(f"preds_dense_{dtype}_{d}.npz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["predict", "--dataset", DATASET, "--backend",
+                           "pallas", "--x-format", "dense", "--x-dtype",
+                           dtype, "--device", str(d), "--checkpoint-dir",
+                           str(ckpt), "--out", str(out_npz)])
+        if rc != 0:
+            raise SystemExit(f"predict --x-dtype {dtype} on {d} exited {rc}")
+        preds[(str(d), dtype)] = np.load(out_npz)["predictions"]
+    card = preds[(str(dev), "bfloat16")]
+    agree_cpu = float((card == preds[("cpu", "bfloat16")]).mean())
+    agree_f32 = float((card == preds[(str(dev), "float32")]).mean())
+    print(f"predict --x-dtype bfloat16 (pallas): argmax equal to the CPU "
+          f"port's on {agree_cpu:.6f} of the nodes, to f32 X's (same "
+          f"weights, card) on {agree_f32:.6f}")
+    if agree_cpu < AGREE:
+        raise SystemExit(f"bf16 predict: card vs CPU {agree_cpu} < {AGREE}")
+
+    groups, niter = len(DEFAULT_SEEDS), 10
+    torch.cuda.reset_peak_memory_stats()
+    got, rows, wall, _ = run_reproduce(
+        dev, ["--datasets", DATASET, "--backend", "pallas", "--x-format",
+              "dense", "--x-dtype", "bfloat16", "--nseeds", str(groups),
+              "--max-epochs", str(BF16_SWEEP_EPOCHS), "--patience", "100"],
+        "sweep_bf16")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches["reproduce bf16 pallas"] = got
+    per = {"spmm_grouped": niter, "spmm_grouped_bwd": niter,
+           "spmm_csr": niter, "edge_masks": -(-groups * niter // 256),
+           "dropout_mask": 2 * -(-groups // 256)}
+    want = {k: per.get(k, 0) * BF16_SWEEP_EPOCHS
+            + (niter if k == "spmm_csr" else 0) for k in got}
+    loss = np.array([r["train_loss"] for r in rows])
+    sweep_ms = float(np.median(np.diff([r["ts"] for r in rows]))) * 1e3
+    print(f"reproduce pallas, dense bf16 X, G={groups}, "
+          f"{BF16_SWEEP_EPOCHS} epochs: {wall:.2f} s, ms per batched epoch "
+          f"(host clock) {sweep_ms:.3f}, peak memory "
+          f"(max_memory_allocated) {peak_gb:.3f} GB, launches per epoch "
+          f"{per}")
+    if got != want or len(rows) != BF16_SWEEP_EPOCHS \
+            or not np.isfinite(loss).all():
+        raise SystemExit(f"reproduce bf16: {len(rows)} epochs, launches "
+                         f"{got}, expected {want}, losses {loss}")
+    batched_epoch_card_vs_cpu(dev)
+    sharded_epoch_card_vs_cpu(dev, "pallas", "dense", "bfloat16")
+    launches.update(tracing_runs(dev, fused_request_ms))
+    return recs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2475,7 +3091,8 @@ def main() -> int:
         print(json.dumps({"kernel_records": recs}))
         return 0
     k3_launch_report(dev)
-    launches = {f"predict {b}": v for b, v in serving_path(dev).items()}
+    served, request_ms = serving_path(dev)
+    launches = {f"predict {b}": v for b, v in served.items()}
     trained, epoch_ms = training_path(dev)
     launches.update({f"train {b}": v for b, v in trained.items()})
     print("ms per training epoch (host clock, NVIDIA card above): "
@@ -2495,9 +3112,14 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(sharded_training_path(dev, epoch_ms["pallas"]))
     launches.update(hier_path(dev))
-    torch.distributed.destroy_process_group()
     print(f"sharded training and hierarchical phase: "
           f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    fc1_recs, bf16_launches = bf16_path(dev, epoch_ms, request_ms["fused"])
+    launches.update(bf16_launches)
+    torch.distributed.destroy_process_group()
+    print(f"bf16 X and tracing phase: {time.perf_counter() - t0:.2f} s")
+    print(json.dumps({"library_products": fc1_recs}))
 
     meta = {
         "spmm_csr": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",

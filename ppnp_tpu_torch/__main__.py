@@ -27,10 +27,15 @@ the gradient is all-reduced), and serves the table sharded
 --propagation sharded`` run over the same process group, and ``bench
 --retrieval`` adds its sharded paths under ``torchrun``.
 
-Flags of the JAX CLI that select what the port does not have yet are
-accepted so the same command lines parse, and raise where they matter
-(``--x-dtype bfloat16``, ``train --tensorboard``, ``--profile``);
-``--layout`` does not change a CSR operator.
+``--x-dtype bfloat16`` stores a dense X in bf16 (``train``, ``predict``,
+``reproduce``, ``retrieve``'s training and ``bench --training`` /
+``--training-breakdown``; ``retrieve`` builds its table from f32 X, as
+the JAX command does). ``train --tensorboard DIR`` mirrors the epoch
+metrics to TensorBoard beside ``--metrics-out``; ``train --profile DIR``
+traces the steady-state epochs and ``bench --profile DIR`` the whole
+bench, one Chrome-trace JSON a rank (``profiling.py``). ``--layout`` is
+accepted so the JAX command lines parse; it does not change a CSR
+operator.
 """
 
 from __future__ import annotations
@@ -86,7 +91,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--print-interval", type=int, default=20)
     p.add_argument("--x-dtype", default=None,
                    choices=["float32", "bfloat16"],
-                   help="attribute-matrix dtype (bfloat16 not ported yet)")
+                   help="attribute-matrix storage dtype (bfloat16 halves "
+                        "the n×f bytes of a dense X; weights and optimizer "
+                        "stay f32)")
     p.add_argument("--x-format", default="auto",
                    choices=["auto", "dense", "sparse"],
                    help="attribute-matrix layout: sparse routes fc1 "
@@ -125,25 +132,29 @@ def cmd_train(args) -> int:
     from ppnp_tpu_torch.builders import (build_propagator, load_graph,
                                          train_kwargs)
     from ppnp_tpu_torch.device import resolve_device
-    from ppnp_tpu_torch.metrics import TENSORBOARD_TODO, JsonlWriter
-    from ppnp_tpu_torch.train import PROFILE_TODO, train_model
+    from ppnp_tpu_torch.metrics import (JsonlWriter, TeeWriter,
+                                        TensorboardWriter)
+    from ppnp_tpu_torch.train import train_model
 
     cfg = _cfg_from_args(args)
     device = resolve_device(args.device)
-    if args.profile:
-        raise NotImplementedError(PROFILE_TODO)
-    if args.tensorboard:
-        raise NotImplementedError(TENSORBOARD_TODO)
     graph = load_graph(cfg)
     logger.info("dataset %s: %s", cfg.dataset, graph)
     propagator = build_propagator(cfg, graph, device=device)
-    metrics = JsonlWriter(cfg.metrics_path) if cfg.metrics_path else None
+    writers = []
+    if cfg.metrics_path:
+        writers.append(JsonlWriter(cfg.metrics_path))
+    if args.tensorboard:
+        writers.append(TensorboardWriter(args.tensorboard))
+    metrics = TeeWriter(*writers) if writers else None
     try:
         model, result = train_model(
             graph, propagator, metrics=metrics,
             checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
-            **train_kwargs(cfg))
+            profile_dir=args.profile, **train_kwargs(cfg))
     finally:
+        # TensorBoard's writer buffers its events: close it, or a short
+        # run leaves a truncated file
         if metrics is not None:
             metrics.close()
     out = {k: v for k, v in result.items() if k != "predictions"}
@@ -308,7 +319,8 @@ def cmd_retrieve(args) -> int:
     propagator = build_propagator(cfg, graph, device=device)
     sharded = cfg.propagation == "sharded"
     model, _ = train_model(graph, propagator, **train_kwargs(cfg))
-    # the table is built from the densified, L1-normalized X (the CSR
+    # the table is built from the densified, L1-normalized f32 X, whatever
+    # --x-dtype trained on (``ppnp_tpu/__main__.py:270-276``; the CSR
     # operator has no padding rows, so nothing is padded; a sharded
     # table is this rank's rows, padded at the tail)
     x = prepare_attr_input(graph, propagator, x_format="dense")
@@ -332,11 +344,19 @@ def cmd_retrieve(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    """Run one bench and print its result JSON."""
-    from ppnp_tpu_torch.train import PROFILE_TODO
+    """Run one bench and print its result JSON; with ``--profile DIR``
+    the whole bench runs under ``profiling.trace``."""
+    import contextlib
 
+    ctx = contextlib.nullcontext()
     if args.profile:
-        raise NotImplementedError(PROFILE_TODO)
+        from ppnp_tpu_torch.profiling import trace
+        ctx = trace(args.profile, create_perfetto_trace=True)
+    with ctx:
+        return _cmd_bench_inner(args)
+
+
+def _cmd_bench_inner(args) -> int:
     from ppnp_tpu_torch import benchmarks as bm
 
     dev = args.device
@@ -414,11 +434,13 @@ def main(argv=None) -> int:
     p.add_argument("--metrics-out", default=None,
                    help="append per-epoch metrics to this JSONL file")
     p.add_argument("--tensorboard", default=None,
-                   help="TensorBoard log dir (not ported yet: raises)")
+                   help="mirror per-epoch metrics to this TensorBoard "
+                        "log dir")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="profiler trace dir (not ported yet: raises)")
+                   help="trace the steady-state epochs into DIR "
+                        "(trace_rank<r>.json, Chrome-trace JSON)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("predict",
@@ -477,8 +499,8 @@ def main(argv=None) -> int:
                    help="steady-state training epochs/s")
     p.add_argument("--x-dtype", default=None,
                    choices=["float32", "bfloat16"],
-                   help="attribute-matrix dtype for --training "
-                        "(bfloat16 not ported yet)")
+                   help="attribute-matrix dtype for --training and "
+                        "--training-breakdown")
     p.add_argument("--x-format", default="auto",
                    choices=["auto", "dense", "sparse"],
                    help="attribute-matrix layout for --training "
@@ -507,7 +529,8 @@ def main(argv=None) -> int:
                         "(use --dataset pubmed for the paper-scale row)")
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="profiler trace dir (not ported yet: raises)")
+                   help="trace the whole bench into DIR "
+                        "(trace_rank<r>.json, Chrome-trace JSON)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.set_defaults(fn=cmd_bench)

@@ -21,8 +21,10 @@ times say nothing of the card) and returns the JAX bench's keys, with
   nothing launched more ranks); each rank times its own calls, and
   ``bench_scaling`` and the sharded ``bench_training`` report the
   slowest rank's time.
-- bfloat16 X waits for ROADMAP item 7 and raises. Nothing else is caught:
-  a kernel that fails to build or launch fails the bench.
+- ``bench_training`` and ``bench_training_breakdown`` report the dtype
+  of the X that ran (``"bfloat16"`` for a bf16 dense X, ``"float32"`` on
+  the sparse path whatever was asked). Nothing is caught: a kernel that
+  fails to build or launch fails the bench.
 """
 
 from __future__ import annotations
@@ -370,6 +372,13 @@ def bench_scaling(
     return result
 
 
+def _x_dtype_name(x) -> str:
+    """The dtype of the staged X that ran: float32 for a SparseInput."""
+    if isinstance(x, SparseInput):
+        return "float32"
+    return str(x.dtype).removeprefix("torch.")
+
+
 def bench_training(
     dataset: str = "cora_ml",
     backend: str = "pallas",
@@ -407,7 +416,7 @@ def bench_training(
     chunk = min(epochs, epoch_chunk)
     epochs = max(chunk, (epochs // chunk) * chunk)
     common = dict(seed=seed, print_interval=0, epoch_chunk=chunk,
-                  x_format=x_format, x_prepared=x_prepared)
+                  x_format=x_format, x_dtype=x_dtype, x_prepared=x_prepared)
     train_model(graph, prop, stopping_args={"max_epochs": chunk,
                                             "patience": 10 ** 6}, **common)
     t0 = time.perf_counter()
@@ -427,7 +436,7 @@ def bench_training(
     return {
         "dataset": dataset, "backend": backend, "epochs": epochs,
         "propagation": propagation,
-        "x_dtype": "float32",
+        "x_dtype": _x_dtype_name(x_prepared),
         "x_format": res["x_format"],
         "epochs_per_s": 1.0 / steady,
         "s_per_epoch": steady,
@@ -550,7 +559,7 @@ def bench_training_breakdown(
     out.update(dataset=dataset, backend=backend,
                x_format=("sparse" if isinstance(x, SparseInput)
                          else "dense"),
-               x_dtype="float32",
+               x_dtype=_x_dtype_name(x),
                n=int(graph.adj_matrix.shape[0]), n_classes=n_classes,
                niter=prop.niter, device=_device_name(dev))
     return out

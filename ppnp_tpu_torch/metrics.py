@@ -1,9 +1,9 @@
 """Structured metrics: JSONL writer + numpy metric helpers.
 
 The port's own copy of ``ppnp_tpu/metrics.py`` (numpy only), except that
-``TensorboardWriter`` is not ported yet and raises, and that under
-``torch.distributed`` only rank 0 writes a ``JsonlWriter``'s rows (every
-rank of a sharded run computes the same metrics).
+under ``torch.distributed`` only rank 0 writes a ``JsonlWriter``'s rows
+and a ``TensorboardWriter``'s events (every rank of a sharded run computes
+the same metrics).
 
 The reference only logs free text every ``print_interval`` epochs and a
 final result dict (``ppnp/pytorch/training.py`` — SURVEY.md §5 row
@@ -24,11 +24,7 @@ import numpy as np
 from ppnp_tpu_torch.parallel.mesh import is_rank0
 
 __all__ = ["accuracy", "macro_f1", "JsonlWriter",
-           "TensorboardWriter", "TeeWriter", "TENSORBOARD_TODO"]
-
-TENSORBOARD_TODO = ("TensorBoard metrics are not ported yet (ROADMAP.md, "
-                    "\"Still to port\", item 8: TensorBoard metrics and "
-                    "profiler traces)")
+           "TensorboardWriter", "TeeWriter"]
 
 
 def accuracy(y_true: np.ndarray, y_pred: np.ndarray) -> float:
@@ -91,16 +87,50 @@ class JsonlWriter:
 
 
 class TensorboardWriter:
-    """TensorBoard mirror of the JSONL stream: not ported yet.
+    """TensorBoard mirror of the JSONL stream (``ppnp_tpu/metrics.py:79-
+    118``), through ``torch.utils.tensorboard.SummaryWriter``.
 
-    The JAX package mirrors ``epoch`` rows through
-    ``torch.utils.tensorboard`` when that is installed; the port raises
-    instead of silently dropping the stream (ROADMAP.md, "Still to port",
-    item 8: TensorBoard metrics and profiler traces).
+    Same ``write(event=..., **fields)`` protocol as :class:`JsonlWriter`;
+    numeric fields of ``epoch`` events become scalars keyed by field name
+    with the epoch as the step (``event``, ``epoch`` and ``ts`` are not
+    scalars). Where tensorboard cannot be imported it logs a warning and
+    writes nothing, as the JAX writer does; on a rank other than 0 it
+    writes nothing.
     """
 
     def __init__(self, logdir: Union[str, Path]):
-        raise NotImplementedError(TENSORBOARD_TODO)
+        self._w = None
+        if not is_rank0():
+            return
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            import logging
+            logging.getLogger(__name__).warning(
+                "tensorboard unavailable (%s); metrics not mirrored", e)
+            return
+        self._w = SummaryWriter(str(logdir))
+
+    def write(self, **row) -> None:
+        if self._w is None or row.get("event") != "epoch":
+            return
+        step = int(row.get("epoch", 0))
+        for k, v in row.items():
+            if k in ("event", "epoch", "ts"):
+                continue
+            if isinstance(v, (int, float, np.floating, np.integer)):
+                self._w.add_scalar(k, float(v), step)
+
+    def close(self) -> None:
+        if self._w is not None:
+            self._w.close()
+            self._w = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class TeeWriter:

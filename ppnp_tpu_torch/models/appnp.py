@@ -19,6 +19,14 @@ Under a row-sharded propagator the MLP runs on this rank's rows
 replicated on every rank: each dense dropout draws rows ``[lo, hi)`` of
 the mask JAX draws over the whole padded array (``row_offset`` = lo), and
 a ``ShardedSparseInput`` draws its own rank's planes.
+
+A dense X narrower than the weights (``x_dtype=bfloat16``) takes the
+mixed-precision fc1 of ``ops/mixed.py``: bf16 operands, f32 sums and
+output, the weight gradient rounded to bf16 as JAX rounds it
+(``appnp.py:75-91``). Under a row-sharded propagator that rounding is left
+to the caller, after the ranks' parts are summed (``train.loss_and_grads``).
+The forward is labelled for traces as the JAX package labels it:
+``ppnp/mlp`` and ``ppnp/propagate`` (``profiling.annotate``).
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ from torch import nn
 from ppnp_tpu_torch.device import resolve_device
 from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.ops.dropout import dropout
+from ppnp_tpu_torch.ops.mixed import mixed_matmul
 from ppnp_tpu_torch.ops.sparse_input import SparseInput
+from ppnp_tpu_torch.profiling import annotate
 
 __all__ = ["MLP", "init_mlp_params", "params_from_jax", "mlp_forward",
            "ppnp_forward", "l2_reg"]
@@ -63,11 +73,13 @@ class MLP(nn.Module):
         return model
 
     def forward(self, x, *, key=None, train: bool = False,
-                drop_prob: float = 0.5, row_offset: int = 0
-                ) -> torch.Tensor:
+                drop_prob: float = 0.5, row_offset: int = 0,
+                round_dw: bool = True) -> torch.Tensor:
         """Local logits; in train mode dropout (from ``key``) precedes
         every layer (``ppnp_tpu/models/appnp.py:50-96``). ``x`` holds the
-        rows from ``row_offset`` on of the whole (padded) X."""
+        rows from ``row_offset`` on of the whole (padded) X; a narrower
+        dense X takes the mixed fc1, whose weight gradient is rounded to
+        X's dtype unless ``round_dw`` is False (module docstring)."""
         use_drop = bool(train and drop_prob > 0.0 and key is not None)
         n_layers = len(self.layers)
         keys = prng.split(key, n_layers) if use_drop else None
@@ -81,10 +93,22 @@ class MLP(nn.Module):
                 if use_drop:
                     h = dropout(keys[i], h, drop_prob,
                                 row_offset=row_offset)
-                h = F.linear(h, lin.weight)
+                h = _linear(h, lin.weight, round_dw)
             if i < n_layers - 1:
                 h = F.relu(h)
         return h
+
+
+def _linear(h: torch.Tensor, weight: torch.Tensor,
+            round_dw: bool) -> torch.Tensor:
+    """``h @ weightᵀ``: mixed precision for narrower data; the inverted
+    case (weights narrower than the data) upcasts the weights, so
+    precision is never lost silently (``appnp.py:86-90``)."""
+    if h.dtype == weight.dtype:
+        return F.linear(h, weight)
+    if torch.finfo(h.dtype).bits < torch.finfo(weight.dtype).bits:
+        return mixed_matmul(h, weight.t(), round_dw=round_dw)
+    return F.linear(h, weight.to(h.dtype))
 
 
 def init_mlp_params(n_features: int, hidden_units: Sequence[int],
@@ -131,12 +155,12 @@ def params_from_jax(params: Sequence[np.ndarray], device=None) -> MLP:
 
 
 def mlp_forward(model: MLP, x, *, key=None, train: bool = False,
-                drop_prob: float = 0.5, row_offset: int = 0
-                ) -> torch.Tensor:
+                drop_prob: float = 0.5, row_offset: int = 0,
+                round_dw: bool = True) -> torch.Tensor:
     """Local (pre-propagation) logits H_local for all n nodes (for the
     rows of X from ``row_offset`` on)."""
     return model(x, key=key, train=train, drop_prob=drop_prob,
-                 row_offset=row_offset)
+                 row_offset=row_offset, round_dw=round_dw)
 
 
 def ppnp_forward(model: MLP, x, propagator,
@@ -146,15 +170,20 @@ def ppnp_forward(model: MLP, x, propagator,
     """Full PPNP forward: MLP → propagate → select idx → log_softmax,
     with ``key_mlp, key_prop = split(key)`` (``appnp.py:104-107``). A
     row-sharded propagator's ``row_range`` places this rank's rows of X
-    in the whole array."""
+    in the whole array (and leaves a mixed fc1's rounding of dW to the
+    caller)."""
     if key is not None:
         key_mlp, key_prop = prng.split(key)
     else:
         key_mlp = key_prop = None
-    lo, _ = getattr(propagator, "row_range", (0, None))
-    h_local = mlp_forward(model, x, key=key_mlp, train=train,
-                          drop_prob=drop_prob, row_offset=lo)
-    z = propagator(h_local, idx, key=key_prop, train=train)
+    sharded = hasattr(propagator, "row_range")
+    lo = propagator.row_range[0] if sharded else 0
+    with annotate("ppnp/mlp"):
+        h_local = mlp_forward(model, x, key=key_mlp, train=train,
+                              drop_prob=drop_prob, row_offset=lo,
+                              round_dw=not sharded)
+    with annotate("ppnp/propagate"):
+        z = propagator(h_local, idx, key=key_prop, train=train)
     return F.log_softmax(z, dim=-1)
 
 

@@ -15,7 +15,11 @@ one H (seed g's classes in columns [g·c, (g+1)·c)), so:
   values (its backward K2 on Xᵀ);
 - the dense layers run per seed as batched matrix products (``torch.bmm``
   over a leading G axis, the counterpart of ``vmap``), with per-seed
-  dropout keys;
+  dropout keys; a bf16 dense X takes the mixed fc1 of ``ops/mixed.py``
+  (in train mode one batched product of the G dropped bf16 copies, in
+  eval mode one product against the lane-stacked ``bf16(W₁)``), each
+  seed's dW rounded to bf16 as under JAX's ``vmap``; a sparse X runs f32
+  whatever ``x_dtype`` asks, with ``train``'s warning;
 - Adam runs on the G-stacked weights with a per-seed masked update
   (``optim.Adam.step(grads, mask)``), and early stopping and the best
   snapshot are tracked per seed.
@@ -52,11 +56,13 @@ from ppnp_tpu_torch.metrics import JsonlWriter, accuracy, macro_f1
 from ppnp_tpu_torch.models.appnp import MLP, init_mlp_params
 from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.ops.dropout import dropout_grouped
+from ppnp_tpu_torch.ops.mixed import mixed_matmul
 from ppnp_tpu_torch.ops.propagation import (PPRPowerIteration,
                                             propagate_grouped)
 from ppnp_tpu_torch.ops.sparse_input import SparseInput
 from ppnp_tpu_torch.optim import Adam
-from ppnp_tpu_torch.train import (BF16_TODO, _check_prepared_input,
+from ppnp_tpu_torch.profiling import annotate
+from ppnp_tpu_torch.train import (_check_prepared_input,
                                   default_idx_split_args,
                                   default_stopping_args, prepare_attr_input)
 
@@ -98,6 +104,15 @@ def _grouped_mlp(params_g: Sequence[torch.Tensor], x, keys_mlp, *,
         else:
             h = spmm_grad(x.csr, x.csr_t, w1s)
         h = h.view(n, groups, -1).permute(1, 0, 2)         # (G, n, h1)
+    elif x.dtype != w1.dtype:
+        # bf16 X: the mixed fc1, per seed in train mode, lane-stacked in
+        # eval mode (one product for every seed)
+        if use_drop:
+            h = mixed_matmul(dropout_grouped(keys[:, 0], x, drop_prob,
+                                             shared=True), w1)
+        else:
+            h = mixed_matmul(x, _stack_lanes(w1))
+            h = h.view(x.shape[0], groups, -1).permute(1, 0, 2)
     elif use_drop:
         h = torch.bmm(dropout_grouped(keys[:, 0], x, drop_prob, shared=True),
                       w1)
@@ -124,11 +139,13 @@ def grouped_forward(params_g: Sequence[torch.Tensor], x, propagator,
         keys_mlp, keys_prop = ks[:, 0], ks[:, 1]
     else:
         keys_mlp = keys_prop = None
-    h = _grouped_mlp(params_g, x, keys_mlp, train=train, drop_prob=drop_prob,
-                     groups=groups)
+    with annotate("ppnp/grouped_mlp"):
+        h = _grouped_mlp(params_g, x, keys_mlp, train=train,
+                         drop_prob=drop_prob, groups=groups)
     n = h.shape[1]
-    z = propagate_grouped(propagator, _stack_lanes(h), keys_prop,
-                          train=train, groups=groups)
+    with annotate("ppnp/grouped_propagate"):
+        z = propagate_grouped(propagator, _stack_lanes(h), keys_prop,
+                              train=train, groups=groups)
     zg = z.view(n, groups, -1)
     if idx_g is None:
         sel = zg.permute(1, 0, 2)                           # (G, n, c)
@@ -191,7 +208,8 @@ def train_models(
         raise ValueError("train_models batches PPRPowerIteration on the "
                          "pallas or xla backend only")
     if dtype not in (None, torch.float32):
-        raise NotImplementedError(BF16_TODO)
+        raise ValueError(f"dtype={dtype}: the port trains float32 weights "
+                         "(x_dtype narrows the attribute matrix alone)")
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.time()
     groups = len(seeds)

@@ -12,7 +12,9 @@ the CPU).
   (``dropout.py:22-48``). With ``row_offset`` = lo, ``x`` is rows
   ``[lo, lo + rows)`` of a larger array (a row-sharded rank's rows) and
   gets those rows of that array's mask: the draw's flat words from
-  ``lo·ceil(last/4)`` on, never the whole array's.
+  ``lo·ceil(last/4)`` on, never the whole array's. A bf16 ``x`` keeps
+  its dtype: the mask depends on the shape alone, and ``x / keep`` is
+  rounded to bf16, as JAX computes it.
 - ``dropout_grouped``: G ``dropout`` draws from G keys in one mask call,
   over one tensor per key or, with ``shared``, one tensor for all: the
   ``jax.vmap`` of ``dropout`` over keys that ``ppnp_tpu/multiseed.py:141``

@@ -24,10 +24,17 @@ time. The JAX package ran ``epoch_chunk`` epochs inside one compiled
 host transfers (``_host_scalars``), to amortise the TPU's dispatch and
 transfer latency; PyTorch on the card runs eagerly, and one epoch reads
 its three scalars with one device-to-host copy. ``chunk_times`` still
-groups epochs by ``epoch_chunk``. ``profile_dir`` is not ported yet.
+groups epochs by ``epoch_chunk``. ``profile_dir`` traces the
+steady-state chunks with ``torch.profiler`` (``profiling.trace``), and
+``spmm_gbps`` comes from ``profiling.StepTimer`` over full chunks, as in
+the JAX package.
 
 Matmuls run in full float32 (``allow_tf32`` off), as the JAX reference
-computes at f32.
+computes at f32. ``x_dtype=bfloat16`` stores only a dense X in bf16; fc1
+is then the mixed product of ``ops/mixed.py`` (bf16 operands, f32 sums),
+and the weights, Adam's state and every activation after fc1 stay f32.
+The sparse path runs f32 whatever ``x_dtype`` asks, with the JAX
+package's warning.
 
 Under a row-sharded propagator (``parallel/sharded.py``,
 ``parallel/hier.py``) every rank runs ``train_model`` on its rows of X,
@@ -36,14 +43,16 @@ are replicated, the loss and the stopping-set eval read the rows of
 their ids gathered to every rank, so every rank computes the same loss,
 accuracy and early-stopping decisions. The gradient rule is that of
 ``parallel/sharded.py``: each rank's gradient of the NLL is its rows'
-part; ``all_reduce_sum`` adds the parts in one collective an epoch, the
-L2 term's gradient ``reg_lambda·W₁`` is added once after it, and Adam
-steps the same weights on every rank. Only rank 0 logs, writes metrics
+part; ``all_reduce_sum`` adds the parts in one collective an epoch
+(with bf16 X the summed fc1 gradient is then rounded to bf16, as JAX
+rounds the dot of its global program), the L2 term's gradient
+``reg_lambda·W₁`` is added once after it, and Adam steps the same weights on every rank. Only rank 0 logs, writes metrics
 and writes checkpoints; ``resume`` restores on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -61,6 +70,7 @@ from ppnp_tpu_torch.metrics import JsonlWriter, accuracy, macro_f1
 from ppnp_tpu_torch.models.appnp import (MLP, init_mlp_params, l2_reg,
                                          ppnp_forward)
 from ppnp_tpu_torch.ops import prng
+from ppnp_tpu_torch.ops.mixed import round_like
 from ppnp_tpu_torch.ops.sparse import csr_from_scipy, csr_transpose
 from ppnp_tpu_torch.ops.sparse_input import (ShardedSparseInput,
                                              SparseInput,
@@ -68,18 +78,14 @@ from ppnp_tpu_torch.ops.sparse_input import (ShardedSparseInput,
 from ppnp_tpu_torch.optim import Adam
 from ppnp_tpu_torch.parallel.mesh import all_reduce_sum, is_rank0
 from ppnp_tpu_torch.parallel.sharded import RowSharded, all_gather_rows
+from ppnp_tpu_torch.profiling import StepTimer, trace
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["train_model", "get_predictions", "prepare_attr_input",
-           "loss_and_grads", "default_idx_split_args", "BF16_TODO",
-           "PROFILE_TODO"]
+           "loss_and_grads", "default_idx_split_args"]
 
-BF16_TODO = ("x_dtype=bfloat16 is not ported yet (ROADMAP.md, \"Still to "
-             "port\", item 7: bfloat16 attributes)")
-PROFILE_TODO = ("profile_dir / --profile is not ported yet (ROADMAP.md, "
-                "\"Still to port\", item 8: TensorBoard metrics and "
-                "profiler traces)")
+_X_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 default_idx_split_args: Dict[str, int] = {
     "ntrain_per_class": 20,
@@ -87,6 +93,25 @@ default_idx_split_args: Dict[str, int] = {
     "nknown": 1500,
     "seed": 2413340114,
 }
+
+
+def _as_x_dtype(x_dtype) -> Optional[torch.dtype]:
+    """``x_dtype`` as a torch dtype: None (the float32 default),
+    "float32"/"bfloat16" or those torch dtypes."""
+    if x_dtype is None:
+        return None
+    dtype = _X_DTYPES.get(x_dtype, x_dtype)
+    if dtype not in _X_DTYPES.values():
+        raise ValueError(f"x_dtype={x_dtype!r}: expected None, float32 "
+                         "or bfloat16")
+    return dtype
+
+
+def _warn_sparse_dtype(dtype: Optional[torch.dtype]) -> None:
+    if dtype not in (None, torch.float32):
+        logger.warning("x_dtype=%s ignored on the sparse path (the CSR "
+                       "fc1 kernel runs float32)",
+                       str(dtype).removeprefix("torch."))
 
 
 def prepare_attr_input(graph: SparseGraph, propagator, *,
@@ -104,7 +129,11 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
     the four surrogates it chooses as the JAX rule does: sparse only for
     ms_academic (n·f = 124.7 M at 0.12 % density).
 
-    ``x_dtype``: ``None``/float32 only; bfloat16 raises for now.
+    ``x_dtype``: None or float32, or bfloat16 (``_as_x_dtype``): a
+    dense X is staged as ``bf16(f32 X)`` (round to nearest even, as
+    ``jnp.asarray(x, bfloat16)``), and fc1 is the mixed product of
+    ``ops/mixed.py``; the sparse path ignores it with the JAX package's
+    warning and runs f32 (``ppnp_tpu/train.py:222-227``).
 
     A row-sharded propagator gets this rank's rows of X
     (``RowSharded.row_range``), zero-padded at the tail of the last rank
@@ -112,8 +141,7 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
     ``ShardedSparseInput``; "auto" picks dense there, as the JAX rule
     does (``ppnp_tpu/train.py:215``).
     """
-    if x_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(BF16_TODO)
+    dtype = _as_x_dtype(x_dtype)
     attr_norm = preprocessing.normalize_attributes(graph.attr_matrix)
     device = propagator.device
     sharded = isinstance(propagator, RowSharded)
@@ -127,6 +155,8 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
     else:
         raise ValueError(f"unknown x_format {x_format!r} "
                          "(expected 'auto', 'dense' or 'sparse')")
+    if use_sparse:
+        _warn_sparse_dtype(dtype)
     if use_sparse and sharded:
         g = propagator.graph
         return build_sharded_sparse_input(
@@ -143,14 +173,16 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
             else np.asarray(attr_norm, dtype=np.float32))
     if sharded:
         x_np = np.pad(x_np, ((0, hi - lo - x_np.shape[0]), (0, 0)))
-    return torch.from_numpy(x_np).to(device)
+    return torch.from_numpy(x_np).to(dtype or torch.float32).to(device)
 
 
 def _check_prepared_input(x, graph: SparseGraph, propagator, *,
                           x_format: str, x_dtype) -> None:
     """Validate a caller-staged ``x_prepared`` (``train.py:264-317``):
     a staged X silently overrides ``x_format``/``x_dtype``; under a
-    row-sharded propagator it must be this rank's rows."""
+    row-sharded propagator it must be this rank's rows. A requested
+    ``x_dtype`` must be a dense X's dtype; the sparse path warns and runs
+    f32, as ``prepare_attr_input`` does."""
     is_sparse = isinstance(x, SparseInput)
     sharded = isinstance(propagator, RowSharded)
     if x_format == "sparse" and not is_sparse:
@@ -174,11 +206,17 @@ def _check_prepared_input(x, graph: SparseGraph, propagator, *,
             f"x_prepared has shape {tuple(x.shape)} but this (graph, "
             f"propagator) needs {want}; it was staged for a different "
             "graph or propagator")
-    if x_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(BF16_TODO)
-    if not is_sparse and x.dtype != torch.float32:
-        raise ValueError(f"x_prepared was staged as {x.dtype}; the port "
-                         "trains on float32 X")
+    want = _as_x_dtype(x_dtype)
+    if want is None:
+        return
+    if is_sparse:
+        _warn_sparse_dtype(want)
+    elif x.dtype != want:
+        name = str(want).removeprefix("torch.")
+        raise ValueError(
+            f"x_dtype={name} requested but x_prepared was staged as "
+            f"{str(x.dtype).removeprefix('torch.')}; re-stage with "
+            "prepare_attr_input(..., x_dtype=...)")
 
 
 def get_predictions(model: MLP, x, propagator) -> np.ndarray:
@@ -215,8 +253,9 @@ def loss_and_grads(model: MLP, x, propagator, idx: torch.Tensor,
     """One training step's loss (NLL on ``idx`` + ``reg_lambda/2·‖W₁‖²``)
     and the weights' gradients, the same on every rank of a row-sharded
     propagator: there the ranks' parts of the NLL's gradient are summed
-    in one all-reduce and the L2 term's added once after it
-    (``parallel/sharded.py``'s gradient rule)."""
+    in one all-reduce, fc1's rounded to bf16 when X is bf16, and the L2
+    term's added once after it (``parallel/sharded.py``'s gradient
+    rule)."""
     params = [lin.weight for lin in model.layers]
     logp = ppnp_forward(model, x, propagator, idx, key=key, train=True,
                         drop_prob=drop_prob)
@@ -226,6 +265,9 @@ def loss_and_grads(model: MLP, x, propagator, idx: torch.Tensor,
         return loss, list(torch.autograd.grad(loss, params))
     grads = all_reduce_sum(list(torch.autograd.grad(nll, params)),
                            propagator.mesh)
+    if not isinstance(x, SparseInput) and x.dtype != params[0].dtype:
+        # the mixed fc1 left its dW unrounded: round the summed one
+        grads[0] = round_like(grads[0], x.dtype)
     grads[0] = grads[0] + reg_lambda * params[0].detach()
     return loss, grads
 
@@ -266,15 +308,21 @@ def train_model(
     """Train PPNP/APPNP on a graph on the propagator's device; returns
     (model, result_dict) with the keys of ``ppnp_tpu.train.train_model``.
 
-    ``dtype``: float32 only (``None`` or ``torch.float32``). Under a
-    row-sharded propagator every rank calls it (module docstring).
-    ``epoch_chunk`` groups epochs in ``chunk_times`` and fixes where
-    ``checkpoint_every`` saves land, as in the JAX package.
+    ``dtype``: the weights' dtype, float32 only (``None`` or
+    ``torch.float32``); ``x_dtype`` narrows the attribute matrix alone.
+    Under a row-sharded propagator every rank calls it (module
+    docstring). ``epoch_chunk`` groups epochs in ``chunk_times`` and fixes
+    where ``checkpoint_every`` saves land, as in the JAX package.
+
+    ``profile_dir``: trace the steady-state chunks into that directory
+    (``profiling.trace``): from the end of the first chunk on, or from
+    the start when one chunk holds the run. A run that stops inside its
+    first chunk traces its final eval forward instead, so the directory
+    is never left empty (``ppnp_tpu/train.py:494-589``).
     """
-    if profile_dir is not None:
-        raise NotImplementedError(PROFILE_TODO)
     if dtype not in (None, torch.float32):
-        raise NotImplementedError(BF16_TODO)
+        raise ValueError(f"dtype={dtype}: the port trains float32 weights "
+                         "(x_dtype narrows the attribute matrix alone)")
     torch.backends.cuda.matmul.allow_tf32 = False
     sharded = isinstance(propagator, RowSharded)
     log = logger.info if is_rank0() else logger.debug
@@ -376,15 +424,23 @@ def train_model(
     # Per-chunk (n_epochs, wall_s) pairs; the EMA over full chunks after
     # the first feeds result["spmm_gbps"], as in the JAX package.
     chunk_times: list = []
-    ema_chunk_s = None
-    t_full = None
+    chunk_timer = StepTimer()
+    tracing = contextlib.ExitStack()
+    traced = False
     while chunk_start < max_epochs and not stop:
+        if (profile_dir is not None and not traced
+                and (chunk_times or max_epochs - start_epoch
+                     <= epoch_chunk)):
+            tracing.enter_context(trace(profile_dir,
+                                        create_perfetto_trace=True))
+            traced = True
         t_chunk = time.perf_counter()
         count = min(epoch_chunk, max_epochs - chunk_start)
         for epoch in range(chunk_start, chunk_start + count):
             loss, acc, stop_loss = run_epoch(epoch)
             last_epoch = epoch
             if not np.isfinite(loss):
+                tracing.close()
                 raise FloatingPointError(
                     f"non-finite training loss at epoch {epoch} "
                     f"(loss={loss}); check learning rate / inputs")
@@ -401,14 +457,10 @@ def train_model(
             if early_stopping.check([acc, stop_loss], epoch):
                 stop = True
                 break
-        now = time.perf_counter()
-        chunk_times.append((last_epoch - chunk_start + 1, now - t_chunk))
+        chunk_times.append((last_epoch - chunk_start + 1,
+                            time.perf_counter() - t_chunk))
         if count == epoch_chunk and not stop:
-            if t_full is not None:
-                dt = now - t_full
-                ema_chunk_s = (dt if ema_chunk_s is None
-                               else 0.9 * ema_chunk_s + 0.1 * dt)
-            t_full = now
+            chunk_timer.tick()
         if checkpoint_dir is not None and (
                 stop or (chunk_start // checkpoint_every)
                 != ((last_epoch + 1) // checkpoint_every)):
@@ -418,6 +470,9 @@ def train_model(
     if checkpoint_dir is not None and not stop:
         # max_epochs ran out without an early stop: persist the final state
         _save(last_epoch)
+    tracing.close()
+    if traced:
+        log("profiler trace written to %s", profile_dir)
 
     runtime = time.time() - t_start
     best_weights, _, _, best_epoch = best
@@ -428,7 +483,14 @@ def train_model(
     else:
         best_epoch = None
 
-    preds = get_predictions(model, x, propagator)
+    if profile_dir is not None and not traced and chunk_times:
+        logger.warning(
+            "training ended during the first epoch chunk; tracing the "
+            "final eval forward instead of steady-state chunks")
+        with trace(profile_dir, create_perfetto_trace=True):
+            preds = get_predictions(model, x, propagator)
+    else:
+        preds = get_predictions(model, x, propagator)
     result: Dict[str, Any] = {}
     for split_name, idx in (("train", idx_train_np),
                             ("early_stopping", idx_stop_np),
@@ -457,10 +519,10 @@ def train_model(
     op = getattr(propagator, "edges", None)
     if op is None:
         op = getattr(propagator, "csr", None)
-    if ema_chunk_s and niter and op is not None and not sharded:
+    if chunk_timer.ema_step_s and niter and op is not None and not sharded:
         bytes_per_step = op.nnz * 8 + 2 * x.shape[0] * n_classes * 4
-        result["spmm_gbps"] = (epoch_chunk * 3 * niter * bytes_per_step
-                               / ema_chunk_s / 1e9)
+        result["spmm_gbps"] = chunk_timer.gbps(
+            epoch_chunk * 3 * niter * bytes_per_step)
     if metrics is not None:
         metrics.write(event="final", **{
             k: v for k, v in result.items() if k != "predictions"})

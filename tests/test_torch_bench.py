@@ -283,12 +283,13 @@ def test_bench_cli_on_the_cpu(sbm800):
     assert set(res["sweep"]) == {"16", "64", "128", "256"}
 
 
-def test_not_ported_parts_raise(sbm800):
-    """What still raises, naming its ROADMAP item: bfloat16 X (item 7),
-    ``--profile`` (item 8); ``--layout`` is not a flag of the port's
-    ``bench``. The blocked backend, ``bench --blocked-scale``, ``bench
-    --scaling`` and the sharded training epoch (``bench --training
-    --propagation sharded``, world size 1 here) run."""
+def test_not_ported_parts_raise(sbm800, tmp_path):
+    """The parts ported after the first benches run: the blocked backend,
+    ``bench --blocked-scale``, ``bench --scaling``, the sharded training
+    epoch (``bench --training --propagation sharded``, world size 1
+    here), the training benches on bfloat16 X (reporting the dtype that
+    ran) and ``bench --profile`` (a parseable trace). ``--layout`` is
+    still not a flag of the port's ``bench``."""
     res = tb.bench_propagation(dataset=sbm800, c=4, niter=2, iters=1,
                                backends=("blocked",), device=CPU)
     assert res["backends"]["blocked"]["steps_per_s"] > 0
@@ -302,11 +303,13 @@ def test_not_ported_parts_raise(sbm800):
                       "--backends", "pallas", "--propagation", "sharded",
                       "--device", "cpu"])
     assert res["propagation"] == "sharded" and res["backend"] == "pallas"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tb.bench_training(dataset=sbm800, x_dtype="bfloat16", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tb.bench_training_breakdown(dataset=sbm800, x_dtype="bfloat16",
-                                    device=CPU)
+    res = tb.bench_training(dataset=sbm800, backend="xla", epochs=2,
+                            x_dtype="bfloat16", x_format="dense",
+                            device=CPU)
+    assert set(res) == set(want) and res["x_dtype"] == "bfloat16"
+    res = tb.bench_training_breakdown(dataset=sbm800, x_dtype="bfloat16",
+                                      x_format="dense", iters=1, device=CPU)
+    assert res["x_dtype"] == "bfloat16" and res["epoch_estimate_ms"] > 0
     res = _bench_cli(["--dataset", sbm800, "--scaling", "--c", "4",
                       "--niter", "2", "--iters", "1", "--device", "cpu"])
     assert set(res["shards"]) == {"1"}
@@ -314,9 +317,13 @@ def test_not_ported_parts_raise(sbm800):
                       "4", "--niter", "2", "--iters", "1", "--device",
                       "cpu"])
     assert set(res["backends"]) == {"xla", "blocked"}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_main(["bench", "--dataset", sbm800, "--profile", "trace",
-                "--device", "cpu"])
+    res = _bench_cli(["--dataset", sbm800, "--c", "4", "--niter", "2",
+                      "--iters", "1", "--backends", "xla", "--profile",
+                      str(tmp_path / "trace"), "--device", "cpu"])
+    assert set(res["backends"]) == {"xla"}
+    events = json.loads((tmp_path / "trace" / "trace_rank0.json")
+                        .read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::index_add_" for e in events)
     with pytest.raises(SystemExit):
         t_main(["bench", "--layout", "banded", "--device", "cpu"])
 

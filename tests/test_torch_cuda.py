@@ -781,3 +781,128 @@ def test_sharded_training_epoch_on_nccl_matches_the_cpu(dev):
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "nccl sharded epoch: ok" in res.stdout
+
+
+def _bf16_x(n, f, seed):
+    """A row-L1-normalised sparse-ish X staged in bf16, as
+    ``prepare_attr_input(x_dtype=bfloat16)`` stages it."""
+    a = sp.random(n, f, density=0.05, random_state=np.random.RandomState(
+        seed), format="csr", dtype=np.float32)
+    a = sp.diags(1.0 / np.maximum(np.asarray(a.sum(1)).ravel(), 1e-12)) @ a
+    return torch.from_numpy(np.asarray(a.todense(), np.float32)).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(2000, 500), (18331, 6805)])
+def test_mixed_fc1_on_the_card(dev, shape):
+    """The card's mixed fc1 is one ``mm`` of the bf16 operands into f32
+    (no f32 copy of X): within rtol 1e-5 of the plain version on the
+    CPU; its dW, rounded to bf16, equal to the CPU's or one bf16 ulp apart
+    beyond the difference of the unrounded f32 sums (held within rtol
+    1e-4 / atol 1e-5: where a sum cancels, its order moves it by more
+    than a bf16 ulp of the result), ≤ 1 % of the entries apart; the
+    batched form per seed within rtol 1e-5 of the 2-D one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ppnp_tpu_torch.ops.mixed import mixed_matmul
+
+    n, f = shape
+    x = _bf16_x(n, f, 1)
+    rng = np.random.RandomState(2)
+    w = torch.from_numpy((rng.randn(f, 64) * 0.03).astype(np.float32))
+    g = torch.from_numpy((rng.randn(n, 64) * 1e-4).astype(np.float32))
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.seen.append((str(func), [a.dtype for a in args
+                                          if isinstance(a, torch.Tensor)],
+                              out.dtype, tuple(out.shape)))
+            return out
+
+    xc, wc = x.to(dev), w.to(dev).requires_grad_()
+    with Ops() as ops:
+        out = mixed_matmul(xc, wc)
+    mm = [s for s in ops.seen if s[0] == "aten.mm.dtype"]
+    assert len(mm) == 1 and mm[0][1] == [torch.bfloat16] * 2
+    assert not [s for s in ops.seen if s[3] == (n, f)
+                and s[2] == torch.float32]
+    wr = w.clone().requires_grad_()
+    ref = mixed_matmul(x, wr)
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=1e-5,
+                               atol=1e-7)
+    dw, = torch.autograd.grad(out, wc, g.to(dev))
+    dw_ref, = torch.autograd.grad(ref, wr, g)
+    raw, = torch.autograd.grad(mixed_matmul(xc, wc, round_dw=False), wc,
+                               g.to(dev))
+    raw_ref, = torch.autograd.grad(mixed_matmul(x, wr, round_dw=False), wr,
+                                   g)
+    raw = raw.cpu()
+    torch.testing.assert_close(raw, raw_ref, rtol=1e-4, atol=1e-5)
+    dw = dw.cpu()
+    assert torch.equal(dw, dw.bfloat16().float())
+    apart = dw != dw_ref
+    ulp = (torch.maximum(dw.abs(), dw_ref.abs()) * 2.0 ** -7
+           + (raw - raw_ref).abs())
+    assert bool(((dw - dw_ref).abs() <= ulp)[apart].all())
+    assert float(apart.float().mean()) <= 0.01
+    if n <= 2000:
+        w3 = torch.stack([w, -w]).to(dev).requires_grad_()
+        out3 = mixed_matmul(xc.expand(2, -1, -1), w3)
+        torch.testing.assert_close(out3[0].detach().cpu(), ref.detach(),
+                                   rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("rate", [0.5, 77 / 256])
+def test_bf16_dropout_bit_equal_to_the_cpu(dev, rate):
+    """Dense dropout of bf16 X on the card (mask kernel, ``where`` and
+    the bf16 survivor scale) gives the CPU's bits, also at a row
+    offset."""
+    from ppnp_tpu_torch.ops.dropout import dropout
+
+    x = _bf16_x(3000, 701, 3)
+    key = prng.PRNGKey(4)
+    for lo in (0, 1000):
+        got = dropout(key, x[lo:].to(dev), rate, row_offset=lo)
+        want = dropout(key, x[lo:], rate, row_offset=lo)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.cpu().view(torch.int16),
+                           want.view(torch.int16))
+
+
+def test_trace_holds_the_kernel_events(dev, tmp_path):
+    """``profiling.trace`` on the card: the Chrome trace parses and holds
+    the K1 and K3 kernels' device events and the ``ppnp/*`` spans of an
+    eval forward on each arm."""
+    import json
+
+    from ppnp_tpu_torch.builders import build_propagator
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
+    from ppnp_tpu_torch.models.appnp import init_mlp_params, ppnp_forward
+    from ppnp_tpu_torch.profiling import trace
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    graph = make_attributed_sbm(n_nodes=3000, n_classes=5, n_features=200,
+                                n_edges=15000, seed=2).standardize()
+    model = init_mlp_params(200, [64], 5, key=prng.PRNGKey(0), device=dev)
+    props = {b: build_propagator(RunConfig(backend=b, niter=4), graph,
+                                 device=dev) for b in ("pallas", "fused")}
+    x = prepare_attr_input(graph, props["pallas"], x_format="dense",
+                           x_dtype="bfloat16")
+    with trace(tmp_path):
+        with torch.no_grad():
+            for prop in props.values():
+                ppnp_forward(model, x, prop)
+        torch.cuda.synchronize()
+    events = json.loads((tmp_path / "trace_rank0.json").read_text())[
+        "traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("spmm_rows_kernel" in k for k in kernels)
+    assert any("appnp_fused_kernel" in k for k in kernels)
+    names = {e.get("name") for e in events}
+    assert {"ppnp/mlp", "ppnp/propagate"} <= names

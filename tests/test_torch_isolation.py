@@ -51,6 +51,8 @@ _SLICE_5 = ("ppnp_tpu_torch.kernels.blocked", "ppnp_tpu_torch.parallel",
             "ppnp_tpu_torch.parallel.mesh", "ppnp_tpu_torch.parallel.health",
             "ppnp_tpu_torch.parallel.partition",
             "ppnp_tpu_torch.parallel.sharded")
+# the tracing module and the mixed-precision fc1, likewise
+_SLICE_7 = ("ppnp_tpu_torch.profiling", "ppnp_tpu_torch.ops.mixed")
 
 
 def test_imports_neither_jax_nor_the_jax_package():
@@ -61,6 +63,7 @@ def test_imports_neither_jax_nor_the_jax_package():
     names = res.stdout.split()
     assert len(names) >= 25  # every module was imported
     assert set(_SLICE_5) <= set(names)
+    assert set(_SLICE_7) <= set(names)
 
 
 def test_sources_name_no_jax_import():

@@ -1,0 +1,215 @@
+"""The tracing surface against the JAX package: ``profiling.py``,
+``train_model(profile_dir=...)``, ``bench --profile`` and the TensorBoard
+mirror of the metrics.
+
+A trace is ``torch.profiler``'s Chrome-trace JSON, one file a rank
+(``trace_rank{r}.json``); the forward's regions carry the JAX package's
+span names (``ppnp/mlp``, ``ppnp/propagate``, ``ppnp/grouped_mlp``,
+``ppnp/grouped_propagate``). Which chunks are traced follows
+``ppnp_tpu/train.py:494-589``: the steady-state chunks, or the final eval
+forward when training ends inside the first chunk. ``TensorboardWriter``
+is read back with tensorboard's ``EventAccumulator`` and held against the
+JSONL rows and the JAX package's writer on the same rows.
+"""
+
+import contextlib
+import io
+import json
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+from ppnp_tpu.metrics import TensorboardWriter as JTensorboardWriter
+from ppnp_tpu.profiling import StepTimer as JStepTimer
+
+from ppnp_tpu_torch import builders as t_builders
+from ppnp_tpu_torch import metrics as t_metrics
+from ppnp_tpu_torch import profiling
+from ppnp_tpu_torch import train as t_train
+from ppnp_tpu_torch.__main__ import main as t_main
+from ppnp_tpu_torch.config import RunConfig
+from ppnp_tpu_torch.data.io import save_to_npz
+from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
+from ppnp_tpu_torch.earlystopping import StopVariable
+from ppnp_tpu_torch.metrics import JsonlWriter, TeeWriter, TensorboardWriter
+from ppnp_tpu_torch.models.appnp import init_mlp_params, ppnp_forward
+from ppnp_tpu_torch.multiseed import grouped_forward
+from ppnp_tpu_torch.ops import prng
+
+SPLIT = {"ntrain_per_class": 10, "nstopping": 60, "nknown": 200,
+         "seed": 1}
+
+
+@pytest.fixture(scope="module")
+def port_graph():
+    return make_attributed_sbm(n_nodes=400, n_classes=4, n_features=128,
+                               n_edges=1600, seed=7).standardize()
+
+
+def _prop(graph, backend="pallas"):
+    return t_builders.build_propagator(RunConfig(backend=backend, niter=3),
+                                       graph, device="cpu")
+
+
+def _events(path):
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def _count(events, name):
+    return sum(e.get("name") == name for e in events)
+
+
+def test_trace_writes_the_spans(port_graph, tmp_path):
+    """One forward and one grouped forward under ``trace``: this rank's
+    file parses, holds each span once and the forward's operators."""
+    prop = _prop(port_graph)
+    x = t_train.prepare_attr_input(port_graph, prop, x_format="dense")
+    model = init_mlp_params(128, [16], 4, key=prng.PRNGKey(0), device="cpu")
+    params_g = [torch.stack([lin.weight.t().detach()] * 2)
+                for lin in model.layers]
+    with profiling.trace(tmp_path / "t", create_perfetto_trace=True):
+        ppnp_forward(model, x, prop, train=True, key=prng.PRNGKey(1))
+        grouped_forward(params_g, x, prop, groups=2)
+    assert not torch.autograd._profiler_enabled()
+    events = _events(tmp_path / "t" / "trace_rank0.json")
+    for name in ("ppnp/mlp", "ppnp/propagate", "ppnp/grouped_mlp",
+                 "ppnp/grouped_propagate"):
+        assert _count(events, name) == 1, name
+    assert _count(events, "aten::mm") >= 1
+
+
+def test_annotate_is_free_without_a_profiler(monkeypatch, tmp_path):
+    """``annotate`` is a ``nullcontext`` when no profiler runs and a
+    ``record_function`` inside a trace; the file name carries the
+    rank."""
+    assert isinstance(profiling.annotate("x"), contextlib.nullcontext)
+    with profiling.trace(tmp_path):
+        span = profiling.annotate("x")
+        assert isinstance(span, torch.profiler.record_function)
+        with span:
+            torch.ones(3).sum()
+    assert _count(_events(tmp_path / "trace_rank0.json"), "x") == 1
+    monkeypatch.setattr(profiling.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(profiling.dist, "get_rank", lambda: 3)
+    assert profiling.trace_path(tmp_path).name == "trace_rank3.json"
+
+
+def test_step_timer_matches_jax(monkeypatch):
+    """The same ticks give the JAX timer's EMA and GB/s."""
+    clock = iter([0.0, 0.5, 1.5, 1.75, 4.0] * 2)
+    monkeypatch.setattr("time.perf_counter", lambda: next(clock))
+    ours, theirs = profiling.StepTimer(), JStepTimer()
+    assert ours.gbps(1) is None
+    dts = [ours.tick() for _ in range(5)]
+    for _ in range(5):
+        theirs.tick()
+    assert dts == [None, 0.5, 1.0, 0.25, 2.25]
+    assert ours.steps == theirs.steps == 5
+    assert ours.ema_step_s == theirs.ema_step_s
+    assert ours.gbps(10 ** 9) == theirs.gbps(10 ** 9)
+
+
+def test_train_model_traces_steady_state_chunks(port_graph, tmp_path):
+    """6 epochs in chunks of 2: the trace starts after the first chunk,
+    so it holds epochs 2-5 (a train and an eval forward each) and not the
+    final evaluation; ``spmm_gbps`` comes from the chunk timer."""
+    prop = _prop(port_graph)
+    _, res = t_train.train_model(
+        port_graph, prop, idx_split_args=SPLIT, print_interval=0,
+        stopping_args={"max_epochs": 6, "patience": 100}, epoch_chunk=2,
+        x_format="sparse", profile_dir=str(tmp_path))
+    events = _events(tmp_path / "trace_rank0.json")
+    assert _count(events, "ppnp/mlp") == _count(events,
+                                                 "ppnp/propagate") == 8
+    assert res["spmm_gbps"] > 0
+
+
+def test_train_model_first_chunk_stop_traces_final_eval(port_graph,
+                                                        tmp_path, caplog):
+    """A run that stops inside its first chunk of 8 (gradient ascent,
+    stopping on the loss alone, which soon stops improving) warns and
+    traces the final eval forward: one MLP span."""
+    prop = _prop(port_graph, "xla")
+    with caplog.at_level(logging.WARNING, logger="ppnp_tpu_torch.train"):
+        _, res = t_train.train_model(
+            port_graph, prop, idx_split_args=SPLIT, print_interval=0,
+            learning_rate=-0.05, stopping_args={
+                "max_epochs": 10, "patience": 2,
+                "stop_varnames": [StopVariable.LOSS]},
+            epoch_chunk=8, x_format="dense", profile_dir=str(tmp_path))
+    assert res["last_epoch"] < 8
+    assert "first epoch chunk" in caplog.text
+    events = _events(tmp_path / "trace_rank0.json")
+    assert _count(events, "ppnp/mlp") == 1
+
+
+def test_train_model_stops_the_trace_on_a_non_finite_loss(port_graph,
+                                                          tmp_path):
+    prop = _prop(port_graph, "xla")
+    with pytest.raises(FloatingPointError, match="non-finite"):
+        t_train.train_model(
+            port_graph, prop, idx_split_args=SPLIT, print_interval=0,
+            learning_rate=1e38, stopping_args={"max_epochs": 5,
+                                               "patience": 100},
+            x_format="dense", profile_dir=str(tmp_path))
+    assert not torch.autograd._profiler_enabled()
+    assert _count(_events(tmp_path / "trace_rank0.json"), "ppnp/mlp") >= 2
+
+
+def test_bench_profile_traces_the_bench(tmp_path, monkeypatch, capsys):
+    """``bench --training --profile DIR`` prints the bench's JSON and
+    leaves the whole bench's trace, its epochs' spans included."""
+    graph = make_attributed_sbm(n_nodes=800, n_classes=4, n_features=64,
+                                n_edges=3200, seed=5)
+    save_to_npz(tmp_path / "sbm800.npz", graph)
+    monkeypatch.setenv("PPNP_TPU_DATA", str(tmp_path))
+    capsys.readouterr()
+    assert t_main(["bench", "--dataset", "sbm800", "--training", "--epochs",
+                   "2", "--backends", "xla", "--profile",
+                   str(tmp_path / "p"), "--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert res["epochs"] == 2
+    events = _events(tmp_path / "p" / "trace_rank0.json")
+    assert _count(events, "ppnp/mlp") >= 8   # 2 runs x 2 epochs x 2
+
+
+def _scalars(logdir):
+    from tensorboard.backend.event_processing.event_accumulator import \
+        EventAccumulator
+    acc = EventAccumulator(str(logdir))
+    acc.Reload()
+    return {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+            for tag in acc.Tags()["scalars"]}
+
+
+def test_tensorboard_writer_matches_jsonl_and_jax(tmp_path, monkeypatch):
+    """Epoch rows through ``TeeWriter(JsonlWriter, TensorboardWriter)``:
+    the event file's scalars equal the JSONL rows (epoch as the step;
+    ``event``, ``epoch``, ``ts`` and non-numbers skipped) and the JAX
+    writer's events on the same rows; on a rank other than 0 nothing is
+    written."""
+    rows = [dict(event="epoch", epoch=e, train_loss=1.0 / (e + 1),
+                 stopping_accuracy=np.float32(0.25 * e),
+                 stopping_loss=np.float64(2.0 - e), note="x")
+            for e in range(4)] + [dict(event="final", runtime=3.0)]
+    buf = io.StringIO()
+    with TeeWriter(JsonlWriter(fileobj=buf),
+                   TensorboardWriter(tmp_path / "port")) as w:
+        for r in rows:
+            w.write(**r)
+    with JTensorboardWriter(tmp_path / "jax") as w:
+        for r in rows:
+            w.write(**r)
+    got = _scalars(tmp_path / "port")
+    assert got == _scalars(tmp_path / "jax")
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    want = {k: [(r["epoch"], np.float32(r[k]))
+                for r in lines if r["event"] == "epoch"]
+            for k in ("train_loss", "stopping_accuracy", "stopping_loss")}
+    assert got == want
+    monkeypatch.setattr(t_metrics, "is_rank0", lambda: False)
+    with TensorboardWriter(tmp_path / "rank1") as w:
+        w.write(**rows[0])
+    assert not (tmp_path / "rank1").exists()

@@ -11,6 +11,8 @@ agrees exactly.
 """
 
 import json
+import logging
+import sys
 import types
 
 import jax
@@ -208,17 +210,22 @@ def test_x_format_auto_rule(shape, density, sparse):
     assert tuple(x.shape) == shape
 
 
-def test_not_ported_options_raise(port_graph):
-    """What is still to port raises, naming its ROADMAP item: bfloat16 X
-    (item 7); the profiler and TensorBoard (item 8). The blocked and flat
-    sharded operators build (a world-size-1 process group here), a
-    sharded propagator trains, takes the row-sharded sparse X
-    (``ShardedSparseInput``), and ``--n-slices 2`` needs a group of a
-    multiple of 2 ranks."""
+def test_not_ported_options_raise(port_graph, tmp_path, monkeypatch,
+                                  caplog):
+    """The options ported after serving work: bfloat16 X is staged in
+    bf16; the blocked and flat sharded operators build (a world-size-1
+    process group here), a sharded propagator trains, takes the
+    row-sharded sparse X (``ShardedSparseInput``), and ``--n-slices 2``
+    needs a group of a multiple of 2 ranks; ``profile_dir`` leaves a
+    trace, and a ``TensorboardWriter`` without tensorboard warns and
+    writes nothing, as the JAX writer does."""
     graph = types.SimpleNamespace(attr_matrix=port_graph.attr_matrix)
     prop = types.SimpleNamespace(device=CPU)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_train.prepare_attr_input(graph, prop, x_dtype="bfloat16")
+    x16 = t_train.prepare_attr_input(graph, prop, x_format="dense",
+                                     x_dtype="bfloat16")
+    assert x16.dtype == torch.bfloat16
+    assert torch.equal(x16, t_train.prepare_attr_input(
+        graph, prop, x_format="dense").to(torch.bfloat16))
     sharded = t_builders.build_propagator(
         TRunConfig(propagation="sharded"), port_graph, device="cpu")
     assert sharded.mesh.world_size == 1
@@ -241,11 +248,19 @@ def test_not_ported_options_raise(port_graph):
     assert blocked.blocked.n_blocks == 1
     prop = t_builders.build_propagator(TRunConfig(backend="pallas"),
                                        port_graph, device="cpu")
-    for call in (lambda: t_train.train_model(port_graph, prop,
-                                             profile_dir="trace"),
-                 lambda: TensorboardWriter("tb")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    t_train.train_model(port_graph, prop, profile_dir=str(tmp_path),
+                        stopping_args={"max_epochs": 2},
+                        idx_split_args={"ntrain_per_class": 10,
+                                        "nstopping": 60, "nknown": 200,
+                                        "seed": 1}, print_interval=0)
+    assert (tmp_path / "trace_rank0.json").is_file()
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    with caplog.at_level(logging.WARNING):
+        writer = TensorboardWriter(tmp_path / "tb")
+    assert "tensorboard unavailable" in caplog.text
+    writer.write(event="epoch", epoch=0, train_loss=1.0)
+    writer.close()
+    assert not (tmp_path / "tb").exists()
 
 
 def test_info_cli(capsys):

@@ -11,6 +11,8 @@ order: loss within 1e-5, weight gradients within rtol 1e-4 / atol 1e-5.
 
 import io
 import json
+import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -208,7 +210,7 @@ def test_train_model_matches_jax(small_graph, port_graph):
     assert [c for c, _ in got["chunk_times"]] == [10, 10, 10]
 
 
-def test_train_model_staged_input_and_not_ported(port_graph):
+def test_train_model_staged_input_and_not_ported(port_graph, tmp_path):
     prop = t_builders.build_propagator(RunConfig(backend="pallas",
                                                  niter=2), port_graph,
                                        device="cpu")
@@ -221,8 +223,12 @@ def test_train_model_staged_input_and_not_ported(port_graph):
     with pytest.raises(ValueError, match="x_prepared"):
         t_train.train_model(port_graph, prop, x_prepared=x,
                             x_format="dense", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_train.train_model(port_graph, prop, profile_dir="trace", **kw)
+    trace_dir = tmp_path / "trace"
+    _, res = t_train.train_model(port_graph, prop, x_prepared=x,
+                                 x_format="sparse", profile_dir=str(trace_dir),
+                                 **kw)
+    assert res["last_epoch"] == 2
+    json.loads((trace_dir / "trace_rank0.json").read_text())
 
 
 def _write_dataset(tmp_path, monkeypatch):
@@ -284,11 +290,49 @@ def test_train_cli_checkpoint_predict_and_resume(tmp_path, monkeypatch,
     assert a["early_stopping"] == b["early_stopping"]
 
 
-def test_train_cli_not_ported_flags(tmp_path, monkeypatch):
+class _FakeSummaryWriter:
+    """Records ``add_scalar`` calls: where tensorflow is installed,
+    importing ``torch.utils.tensorboard`` imports it (~12 s), so the CLI's
+    wiring is held here against this stand-in and the real writer once,
+    in ``test_torch_profiling.py``."""
+
+    made = []
+
+    def __init__(self, logdir):
+        self.logdir, self.scalars, self.closed = logdir, [], False
+        self.made.append(self)
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, value, step))
+
+    def close(self):
+        self.closed = True
+
+
+def test_train_cli_not_ported_flags(tmp_path, monkeypatch, capsys):
+    """``train --tensorboard DIR`` mirrors the JSONL epoch rows to a
+    TensorBoard writer (closed at the end) and ``--profile DIR`` leaves
+    this rank's trace there."""
     name = _write_dataset(tmp_path, monkeypatch)
-    for flag in ("--tensorboard", "--profile"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_main(["train", "--dataset", name, "--device", "cpu",
-                    "--max-epochs", "1", flag, str(tmp_path / "out")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TensorboardWriter(tmp_path / "tb")
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard",
+                        types.SimpleNamespace(
+                            SummaryWriter=_FakeSummaryWriter))
+    metrics = tmp_path / "m.jsonl"
+    _cli(capsys, ["train", "--dataset", name, "--device", "cpu",
+                  "--max-epochs", "3", "--k", "2", "--metrics-out",
+                  str(metrics), "--tensorboard", str(tmp_path / "tb"),
+                  "--profile", str(tmp_path / "prof")])
+    tb, = _FakeSummaryWriter.made
+    assert tb.logdir == str(tmp_path / "tb") and tb.closed
+    want = [(k, float(r[k]), r["epoch"]) for r in
+            _epoch_rows(metrics.read_text())
+            for k in ("train_loss", "stopping_accuracy", "stopping_loss")]
+    assert sorted(tb.scalars) == sorted(want)
+    events = json.loads((tmp_path / "prof" / "trace_rank0.json")
+                        .read_text())["traceEvents"]
+    assert {"ppnp/mlp", "ppnp/propagate"} <= {e.get("name")
+                                              for e in events}
+    writer = TensorboardWriter(tmp_path / "tb2")
+    writer.write(event="final", train_loss=1.0)
+    writer.close()
+    assert _FakeSummaryWriter.made[-1].scalars == []
