@@ -126,13 +126,27 @@ order; any failure exits non-zero and nothing is caught:
    µs of one ``annotate`` span with the profiler off and on, and the
    fused arm's request ms beside phase 4's; prints the records as one
    ``{"library_products": ...}`` line;
-14. print one ``{"kernels": [...]}`` line (launches per path, the
+14. the public surface and the example: ``ppnp_tpu_torch.ops.spmm`` on
+   its pallas arm (one K1 launch) within 1e-5 of its xla arm at phase 3's
+   Â and c = 15; ``examples/simple_example_torch.py``'s ``main`` in
+   process on the xla, pallas and fused arms for up to 300 epochs (Cora-ML
+   at full width: launches per epoch and of the final eval and the hidden
+   table asserted, a finite and falling loss, the pallas and fused arms'
+   final stopping loss within 1e-5; each arm's top-5 of nodes 0-2 those
+   of a float64 table of its own weights, and the pallas arm's weights
+   giving the same top-5 through every arm, wherever neighbouring scores
+   differ by more than 1e-5; ms per epoch and valtest accuracy printed);
+   ``build_sparse_input`` on MS
+   Academic's X, its CSR arrays equal to the ``SparseInput`` that
+   ``train`` stages;
+15. print one ``{"kernels": [...]}`` line (launches per path, the
    ``retrieve <arm>``, ``bench <name>``, ``predict blocked``, ``train
    blocked``, ``bench blocked``, ``predict sharded <arm>``, ``bench
    scaling <arm>``, ``train sharded <arm> <X layout>``, ``predict
    hier <arm>``, ``train dense <dtype> <arm>``, ``reproduce bf16
-   pallas``, ``train profile <arm>`` and ``bench training profile``
-   paths included), then the card line, then ``{"ok": true, "device":
+   pallas``, ``train profile <arm>``, ``bench training profile``,
+   ``spmm pallas`` and ``example <arm>`` paths included), then the card
+   line, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -2872,7 +2886,7 @@ def tracing_runs(dev, fused_request_ms):
 
     from ppnp_tpu_torch.__main__ import main as cli_main
     from ppnp_tpu_torch.kernels import build
-    from ppnp_tpu_torch.profiling import annotate
+    from ppnp_tpu_torch.profiling import annotate, trace_path
 
     out_dir = ROOT / "build" / "chip_smoke"
     launches = {}
@@ -2890,7 +2904,7 @@ def tracing_runs(dev, fused_request_ms):
             dev, ["--backend", b, "--x-dtype", "bfloat16", "--profile",
                   str(prof), "--tensorboard", str(tb)], name, PROFILE_EPOCHS)
         launches[name] = got
-        events = trace_events(prof / "trace_rank0.json")
+        events = trace_events(trace_path(prof))
         spans = {e.get("name") for e in events}
         per = bf16_launches_per_epoch(b, res["config"]["niter"])
         want = traced * (per.get("spmm_csr", 0) + per.get("spmm_csr_bwd", 0)
@@ -2927,7 +2941,7 @@ def tracing_runs(dev, fused_request_ms):
                        "--profile", str(prof), "--device", str(dev)])
     launches["bench training profile"] = dict(build.LAUNCHES)
     res = json.loads(buf.getvalue())
-    events = trace_events(prof / "trace_rank0.json")
+    events = trace_events(trace_path(prof))
     kept = kernel_events(events, "spmm_rows_kernel")
     print(f"bench --training --profile: x_dtype {res['x_dtype']}, "
           f"{res['s_per_epoch'] * 1e3:.3f} ms/epoch under the profiler, "
@@ -3042,6 +3056,194 @@ def bf16_path(dev, epoch_ms, fused_request_ms):
     return recs, launches
 
 
+EXAMPLE_EPOCHS = 300    # the example's --max-epochs on each arm
+EXAMPLE_TABLE = {"pallas": {"spmm_csr": 10}, "fused": {"appnp_fused": 1},
+                 "xla": {}}   # the hidden table after training
+
+
+def load_example():
+    """``examples/simple_example_torch.py`` of this checkout, as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "simple_example_torch", ROOT / "examples" / "simple_example_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def apart_ranks(scores: np.ndarray) -> np.ndarray:
+    """The ranks of each query's top-k whose score differs from both its
+    neighbours' by more than RTOL (the last rank: from the one before)."""
+    gaps = -np.diff(scores, axis=1) > RTOL
+    return (np.pad(gaps, ((0, 0), (1, 0)), constant_values=True)
+            & np.pad(gaps, ((0, 0), (0, 1)), constant_values=True))
+
+
+def public_surface_path(dev):
+    """Phase 14: ``ops.spmm`` pallas against xla at phase 3's shapes (Â,
+    c = 15), one K1 launch; the example's ``main`` on the xla, pallas and
+    fused arms (launches per epoch, a falling loss, pallas and fused on
+    the same stopping loss, each arm's top-5 equal to that of a float64
+    table of its weights and pallas's weights giving the same top-5 on
+    every arm where scores stand apart, ms per epoch and valtest
+    accuracy); ``build_sparse_input`` on MS Academic's X
+    against the ``SparseInput`` that ``train`` stages. Returns launch
+    counts per path."""
+    from ppnp_tpu_torch import load_dataset
+    from ppnp_tpu_torch.builders import build_propagator
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.kernels import build
+    from ppnp_tpu_torch.ops import (calc_A_hat, csr_from_scipy,
+                                    csr_transpose, edge_list_from_scipy,
+                                    prng, rcm_permutation, spmm)
+    from ppnp_tpu_torch.ops.sparse_input import (SparseInput,
+                                                 build_sparse_input)
+    from ppnp_tpu_torch.preprocessing import normalize_attributes
+    from ppnp_tpu_torch.retrieval import build_embedding_table, retrieve_topk
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    launches = {}
+    graph = load_dataset(DATASET).standardize()
+    a_hat = calc_A_hat(graph.adj_matrix)
+    edges = edge_list_from_scipy(a_hat, device=dev)
+    csr = csr_from_scipy(a_hat, perm=rcm_permutation(a_hat), device=dev)
+    c = int(graph.labels.max()) + 1
+    h = torch.from_numpy(np.random.RandomState(14).randn(
+        a_hat.shape[0], c).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got = spmm(edges, h, csr=csr, backend="pallas")
+    torch.cuda.synchronize()
+    launches["spmm pallas"] = dict(build.LAUNCHES)
+    if launches["spmm pallas"] != {**dict.fromkeys(build.LAUNCHES, 0),
+                                   "spmm_csr": 1}:
+        raise SystemExit(f"spmm pallas: launches {launches['spmm pallas']}")
+    err = compare("spmm pallas vs xla", got, spmm(edges, h))
+    print(f"ops.spmm: pallas vs xla at n={a_hat.shape[0]} c={c}, max abs "
+          f"err {err:.3g}, 1 K1 launch")
+
+    example = load_example()
+    runs = {}
+    for b in ("xla", "pallas", "fused"):
+        buf = io.StringIO()
+        build.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            out = example.main(["--device", str(dev), "--backend", b,
+                                "--max-epochs", str(EXAMPLE_EPOCHS)])
+        got = dict(build.LAUNCHES)
+        launches[f"example {b}"] = got
+        rows, res = out["epochs"], out["result"]
+        epochs = len(rows)
+        per = bf16_launches_per_epoch(b, 10)
+        want = {k: per.get(k, 0) * epochs + DENSE_FINAL_EVAL[b].get(k, 0)
+                + EXAMPLE_TABLE[b].get(k, 0) for k in got}
+        losses = [r["train_loss"] for r in rows]
+        if got != want or res["last_epoch"] != epochs - 1:
+            raise SystemExit(f"example {b}: {epochs} epochs, launches {got}, "
+                             f"expected {want}")
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise SystemExit(f"example {b}: loss not finite and falling")
+        if not np.isfinite(out["scores"]).all():
+            raise SystemExit(f"example {b}: non-finite top-5 scores")
+        ms = float(np.median(np.diff([r["ts"] for r in rows][1:]))) * 1e3
+        runs[b] = out
+        print(f"example {b}: {epochs} epochs (best {res['best_epoch']}), "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, stopping loss "
+              f"{rows[-1]['stopping_loss']!r}, valtest acc "
+              f"{res['valtest']['accuracy']:.4f}, ms/epoch (median, host "
+              f"clock) {ms:.3f}, top-5 of nodes 0-2 "
+              f"{out['top5'].tolist()}, launches per epoch {per}")
+    stop = {b: runs[b]["epochs"][-1]["stopping_loss"] for b in runs}
+    if (len(runs["pallas"]["epochs"]) != len(runs["fused"]["epochs"])
+            or abs(stop["pallas"] - stop["fused"]) > RTOL):
+        raise SystemExit(f"example: pallas and fused stop apart: {stop}")
+    print(f"example: pallas and fused final stopping loss bit-equal "
+          f"{stop['pallas'] == stop['fused']} (difference "
+          f"{abs(stop['pallas'] - stop['fused']):.3g})")
+    def same_top5(what, top5, scores, ref_top5, ref_scores):
+        apart = apart_ranks(scores) & apart_ranks(ref_scores)
+        if not np.array_equal(top5[apart], ref_top5[apart]):
+            raise SystemExit(f"example: top-5 of {what} differ: "
+                             f"{top5.tolist()} vs {ref_top5.tolist()}")
+        print(f"example: top-5 of {what} equal at {int(apart.sum())} of "
+              f"{apart.size} ranks standing apart")
+
+    # Each arm's top-5 is held against a float64 table of its own weights.
+    # The arms train apart: xla draws its masks by slot, as the JAX
+    # package's xla arm does; pallas and fused draw the same masks, but K3's
+    # adjoint sums in another order than autograd over K1, so over hundreds
+    # of epochs their weights part by ~1e-5 and early stopping may restore
+    # another epoch. The retrieval on every arm is held on one set of
+    # weights, pallas's, through each arm's propagator.
+    cora = load_dataset("cora_ml").standardize()
+    for b, out in runs.items():
+        state = {k: v.cpu() for k, v in out["params"].state_dict().items()}
+        table = reference_table(cora, state, 0.1, 10, "hidden")
+        ref = torch.from_numpy(table[:3] @ table.T)
+        ref_scores, ref_top5 = torch.topk(ref, 5, dim=1)
+        same_top5(f"{b} and its float64 table", out["top5"], out["scores"],
+                  ref_top5.numpy(), ref_scores.numpy())
+    x = torch.from_numpy(np.asarray(normalize_attributes(
+        cora.attr_matrix).todense(), dtype=np.float32)).to(dev)
+    gen = torch.Generator().manual_seed(14)
+    h0, up = (torch.randn(x.shape[0], HIDDEN, generator=gen).to(dev)
+              for _ in range(2))
+    tops, masked = {}, {}
+    for b in runs:
+        prop = build_propagator(RunConfig(dataset="cora_ml", backend=b),
+                                cora, device=dev)
+        table = build_embedding_table(runs["pallas"]["params"], x, prop,
+                                      level="hidden")
+        tops[b] = [t.cpu().numpy() for t in retrieve_topk(table[:3], table,
+                                                          k=5)]
+        # one masked propagation and its backward, for pallas against fused
+        h = h0.clone().requires_grad_(True)
+        y = prop.propagate(h, key=prng.PRNGKey(14), train=True)
+        (y * up).sum().backward()
+        masked[b] = (y.detach(), h.grad)
+    for i, what in enumerate(("forward", "gradient")):
+        a, b = masked["pallas"][i], masked["fused"][i]
+        print(f"example: one masked propagation's {what}, pallas vs fused: "
+              f"bit-equal {torch.equal(a, b)}, max abs diff "
+              f"{float((a - b).abs().max()):.3g}, "
+              f"{int((a != b).sum())} of {a.numel()} entries apart")
+    if not np.array_equal(tops["pallas"][1], runs["pallas"]["top5"]):
+        raise SystemExit("example: pallas's top-5 not reproduced")
+    for b in ("xla", "fused"):
+        same_top5(f"pallas's weights on pallas and {b}", tops["pallas"][1],
+                  tops["pallas"][0], tops[b][1], tops[b][0])
+    shared = {b: sum(len(set(p) & set(q)) for p, q in zip(
+        runs[b]["top5"].tolist(), runs["pallas"]["top5"].tolist()))
+        for b in ("xla", "fused")}
+    print(f"example: best epochs "
+          f"{ {b: r['result']['best_epoch'] for b, r in runs.items()} }; "
+          f"of the 15 top-5 nodes of pallas's own weights, xla's share "
+          f"{shared['xla']}, fused's {shared['fused']}")
+
+    prop = build_propagator(RunConfig(dataset=DATASET, backend="pallas"),
+                            graph, device=dev)
+    staged = prepare_attr_input(graph, prop, x_format="sparse")
+    attr = normalize_attributes(graph.attr_matrix)
+    built = build_sparse_input(attr, device=dev)
+    inline = csr_from_scipy(attr, device=dev)
+    for name, ref in (("train's SparseInput", staged),
+                      ("the CSR of X and its transpose",
+                       SparseInput(csr=inline, csr_t=csr_transpose(inline)))):
+        for part in ("csr", "csr_t"):
+            m, r = getattr(built, part), getattr(ref, part)
+            for field in ("row_ptr", "col", "val", "rows", "fwd_pos"):
+                a, b = getattr(m, field), getattr(r, field)
+                if (a is None) != (b is None) or (
+                        a is not None and not torch.equal(a, b)):
+                    raise SystemExit(f"build_sparse_input: {part}.{field} "
+                                     f"differs from {name}")
+    print(f"build_sparse_input: X {built.shape[0]}x{built.shape[1]} "
+          f"nnz {built.csr.nnz}, X and X^T arrays equal to train's "
+          "SparseInput and to the CSR of X and its transpose")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3120,6 +3322,10 @@ def main() -> int:
     torch.distributed.destroy_process_group()
     print(f"bf16 X and tracing phase: {time.perf_counter() - t0:.2f} s")
     print(json.dumps({"library_products": fc1_recs}))
+    t0 = time.perf_counter()
+    launches.update(public_surface_path(dev))
+    print(f"public surface and example phase: "
+          f"{time.perf_counter() - t0:.2f} s")
 
     meta = {
         "spmm_csr": ("cuda", "ppnp_tpu_torch/csrc/spmm.cu",

@@ -6,7 +6,8 @@
 # pallas on the 2 x 2 hierarchical mesh (--n-slices 2), then `bench
 # --training --propagation sharded`, then one sharded pallas `train
 # --profile` of PROFILE_EPOCHS epochs (the chunks after the first 50 are
-# traced, one trace_rank<r>.json a rank). Ends with a summary line per
+# traced, one trace_rank<r>.json a rank in the session's directory
+# under OUT/profile, found through profiling.trace_path). Ends with a summary line per
 # run: best and last epoch, valtest accuracy, ms an epoch (median over
 # its 50-epoch chunks after the first) and whether every rank holds the
 # same weights; and per rank of the traced run, the share of the traced
@@ -55,6 +56,8 @@ echo "profile rc=$?"
 python3 - "$OUT" <<'PY'
 import glob, json, os, statistics, sys
 
+from ppnp_tpu_torch.profiling import trace_path
+
 def union_ms(intervals):
     busy, end = 0.0, None
     for lo, hi in sorted(intervals):
@@ -65,7 +68,13 @@ def union_ms(intervals):
     return busy / 1e3
 
 
-for f in sorted(glob.glob(os.path.join(sys.argv[1], "profile", "*.json"))):
+try:
+    session = trace_path(os.path.join(sys.argv[1], "profile"), 0).parent
+    traces = sorted(str(p) for p in session.glob("trace_rank*.json"))
+except FileNotFoundError as e:
+    print("profile:", e)
+    traces = []
+for f in traces:
     ev = json.load(open(f))["traceEvents"]
     host = [e for e in ev if e.get("cat") in ("cpu_op", "user_annotation")
             and "dur" in e]

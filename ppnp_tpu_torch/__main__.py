@@ -440,7 +440,8 @@ def main(argv=None) -> int:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="trace the steady-state epochs into DIR "
-                        "(trace_rank<r>.json, Chrome-trace JSON)")
+                        "(a new DIR/<session>/trace_rank<r>.json each run, "
+                        "Chrome-trace JSON)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("predict",
@@ -530,7 +531,8 @@ def main(argv=None) -> int:
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="trace the whole bench into DIR "
-                        "(trace_rank<r>.json, Chrome-trace JSON)")
+                        "(a new DIR/<session>/trace_rank<r>.json each run, "
+                        "Chrome-trace JSON)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.set_defaults(fn=cmd_bench)

@@ -1,8 +1,7 @@
 """npz pack/unpack for SparseGraph using the upstream key scheme.
 
 The port's own copy of ``ppnp_tpu/data/io.py`` (the JAX package's
-module loads jax through its package ``__init__``), without the
-networkx converter, which the serving path does not use.
+module loads jax through its package ``__init__``).
 
 Reference analog: ``ppnp/data/io.py`` (~L60 load_from_npz, ~L90
 load_dataset — SURVEY.md §2.1). The npz key scheme is the public
@@ -29,7 +28,55 @@ import scipy.sparse as sp
 from ppnp_tpu_torch.data.sparsegraph import SparseGraph
 
 __all__ = ["load_from_npz", "save_to_npz", "load_npz_dataset",
-           "data_search_dirs"]
+           "data_search_dirs", "networkx_to_sparsegraph"]
+
+
+def networkx_to_sparsegraph(nx_graph, label_name=None,
+                            sparse_node_attrs=True) -> SparseGraph:
+    """Convert a networkx graph to a SparseGraph.
+
+    Reference analog: ``io.networkx_to_sparsegraph`` (SURVEY.md §2.1).
+    Node attributes become a dense [n, f] matrix over the union of the
+    scalar attribute keys; ``label_name`` selects the label attribute.
+    Gated on networkx being importable (not a hard dependency).
+    """
+    import networkx as nx  # soft dependency
+
+    nodes = list(nx_graph.nodes())
+    index = {u: i for i, u in enumerate(nodes)}
+    adj = nx.to_scipy_sparse_array(nx_graph, nodelist=nodes, format="csr")
+    adj = sp.csr_matrix(adj)
+
+    attr_keys = sorted({
+        k for _, data in nx_graph.nodes(data=True)
+        for k, v in data.items()
+        if k != label_name and isinstance(v, (int, float))
+    })
+    attr_matrix = None
+    if attr_keys:
+        attr_matrix = np.zeros((len(nodes), len(attr_keys)),
+                               dtype=np.float32)
+        for u, data in nx_graph.nodes(data=True):
+            for j, k in enumerate(attr_keys):
+                if k in data:
+                    attr_matrix[index[u], j] = data[k]
+        if sparse_node_attrs:
+            attr_matrix = sp.csr_matrix(attr_matrix)
+
+    labels = None
+    class_names = None
+    if label_name is not None:
+        raw = [nx_graph.nodes[u].get(label_name) for u in nodes]
+        classes = sorted({r for r in raw if r is not None},
+                         key=str)
+        lookup = {c: i for i, c in enumerate(classes)}
+        labels = np.array([lookup.get(r, -1) for r in raw], dtype=np.int64)
+        class_names = np.array([str(c) for c in classes])
+
+    return SparseGraph(adj, attr_matrix, labels,
+                       node_names=np.array([str(u) for u in nodes]),
+                       attr_names=np.array(attr_keys) if attr_keys else None,
+                       class_names=class_names)
 
 
 def load_from_npz(file_name: Union[str, Path]) -> SparseGraph:

@@ -93,7 +93,8 @@ class TensorboardWriter:
     Same ``write(event=..., **fields)`` protocol as :class:`JsonlWriter`;
     numeric fields of ``epoch`` events become scalars keyed by field name
     with the epoch as the step (``event``, ``epoch`` and ``ts`` are not
-    scalars). Where tensorboard cannot be imported it logs a warning and
+    scalars). Where tensorboard cannot be imported or the writer cannot
+    be made (a log dir that cannot be created, say) it logs a warning and
     writes nothing, as the JAX writer does; on a rank other than 0 it
     writes nothing.
     """
@@ -104,12 +105,12 @@ class TensorboardWriter:
             return
         try:
             from torch.utils.tensorboard import SummaryWriter
-        except ImportError as e:
+            self._w = SummaryWriter(str(logdir))
+        except Exception as e:
             import logging
             logging.getLogger(__name__).warning(
                 "tensorboard unavailable (%s); metrics not mirrored", e)
-            return
-        self._w = SummaryWriter(str(logdir))
+            self._w = None
 
     def write(self, **row) -> None:
         if self._w is None or row.get("event") != "epoch":

@@ -54,12 +54,14 @@ from ppnp_tpu_torch.kernels.blocked import (BlockedCsr, block_weights,
                                             blocked_step)
 from ppnp_tpu_torch.kernels.fused import appnp_fused_grad
 from ppnp_tpu_torch.kernels.masks import edge_masks
-from ppnp_tpu_torch.kernels.spmm import spmm_grad, spmm_grad_grouped
+from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_grad,
+                                         spmm_grad_grouped)
 from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.ops.dropout import dropout_grouped
 from ppnp_tpu_torch.ops.sparse import CsrMatrix, EdgeList
 
-__all__ = ["spmm_edge_list", "PPRPowerIteration", "propagate_grouped"]
+__all__ = ["spmm_edge_list", "spmm", "PPRPowerIteration",
+           "propagate_grouped"]
 
 BACKENDS = ("xla", "pallas", "fused", "blocked")
 
@@ -72,6 +74,35 @@ def spmm_edge_list(edges: EdgeList, h: torch.Tensor,
     gathered = h.index_select(0, edges.src) * w[:, None]
     out = h.new_zeros((edges.n_rows, h.shape[1]))
     return out.index_add_(0, edges.dst, gathered)
+
+
+def spmm(edges: EdgeList, h: torch.Tensor,
+         w: Optional[torch.Tensor] = None,
+         csr: Optional[CsrMatrix] = None,
+         backend: str = "xla") -> torch.Tensor:
+    """Backend-dispatching Â @ H (``ppnp_tpu/ops/propagation.py:53-68``,
+    with the CSR operator in place of the pair chunks): "xla" is
+    ``spmm_edge_list``; "pallas" launches K1 on ``csr`` in the caller's
+    row order, ``h`` permuted by ``csr.perm`` on entry and the result by
+    ``csr.iperm`` on exit, as ``spmm_pair_chunks`` does without
+    ``assume_permuted``. Not differentiable on the pallas arm (the
+    propagator's arms carry K1's backward). Another backend raises where
+    the JAX function falls through to "xla"."""
+    if backend == "pallas":
+        if csr is None:
+            raise ValueError("pallas backend requires csr")
+        if w is not None:
+            raise ValueError(
+                "pallas backend takes per-iteration weights via the "
+                "kernel's w argument, not the EdgeList w")
+        if csr.perm is not None:
+            h = h.index_select(0, csr.perm)
+        out = spmm_csr(csr, h.contiguous())
+        return out if csr.iperm is None else out.index_select(0, csr.iperm)
+    if backend != "xla":
+        raise ValueError(f"unknown backend {backend!r}; spmm has 'xla' and "
+                         "'pallas'")
+    return spmm_edge_list(edges, h, w)
 
 
 class PPRPowerIteration(nn.Module):

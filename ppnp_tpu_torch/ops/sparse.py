@@ -40,6 +40,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ppnp_tpu_torch.device import resolve_device
+
 __all__ = ["EdgeList", "edge_list_from_scipy", "CsrMatrix",
            "csr_from_scipy", "csr_transpose", "rcm_permutation"]
 
@@ -64,14 +66,21 @@ class EdgeList:
     nnz: int           # real (unpadded) count
 
 
-def edge_list_from_scipy(mat: sp.spmatrix, *, device: torch.device,
-                         pad_multiple: int = 512) -> EdgeList:
-    """Convert a scipy sparse matrix to a padded, dst-sorted EdgeList."""
+def edge_list_from_scipy(mat: sp.spmatrix, nnz_pad: Optional[int] = None,
+                         pad_multiple: int = 512, *, device=None
+                         ) -> EdgeList:
+    """Convert a scipy sparse matrix to a padded, dst-sorted EdgeList on
+    ``device`` (default cuda, ``resolve_device``): ``nnz_pad`` slots, by
+    default the entries rounded up to ``pad_multiple``."""
+    device = resolve_device(device)
     csr = mat.tocsr()
     csr.sum_duplicates()
     coo = csr.tocoo()  # CSR→COO yields row-major (dst-sorted) order
     nnz = coo.nnz
-    nnz_pad = _round_up(max(nnz, 1), pad_multiple)
+    if nnz_pad is None:
+        nnz_pad = _round_up(max(nnz, 1), pad_multiple)
+    if nnz_pad < nnz:
+        raise ValueError(f"nnz_pad={nnz_pad} < nnz={nnz}")
     n_rows, n_cols = csr.shape
     pad = nnz_pad - nnz
     dst = np.concatenate([coo.row.astype(np.int32),

@@ -25,18 +25,20 @@ training sums over the ranks (``parallel/sharded.py``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ppnp_tpu_torch.device import resolve_device
 from ppnp_tpu_torch.kernels.masks import edge_masks
 from ppnp_tpu_torch.kernels.spmm import spmm_grad
 from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.ops.sparse import (CsrMatrix, csr_from_scipy,
                                        csr_transpose)
 
-__all__ = ["SparseInput", "ShardedSparseInput",
+__all__ = ["SparseInput", "build_sparse_input", "ShardedSparseInput",
            "build_sharded_sparse_input"]
 
 
@@ -71,6 +73,27 @@ class SparseInput:
         return spmm_grad(self.csr, self.csr_t, w, w_x, w_xt)
 
 
+def build_sparse_input(attr: sp.spmatrix, n_rows: Optional[int] = None, *,
+                       device=None) -> SparseInput:
+    """The (already L1-normalized) sparse X and Xᵀ in CSR on ``device``
+    (default cuda), the counterpart of ``ppnp_tpu/ops/sparse_input.py:
+    101``: ``n_rows`` ≥ X's rows pads X with empty rows at the tail, as
+    the JAX builder pads (``indptr`` repeats its last entry). The JAX
+    builder's ``layout`` and geometry arguments shape its pair chunks; a
+    CSR operator has none."""
+    device = resolve_device(device)
+    csr = sp.csr_matrix(attr, dtype=np.float32)
+    n, f = csr.shape
+    n_rows = int(n_rows or n)
+    if n_rows < n:
+        raise ValueError(f"n_rows={n_rows} < attribute rows {n}")
+    if n_rows > n:
+        csr = sp.csr_matrix((csr.data, csr.indices, np.pad(
+            csr.indptr, (0, n_rows - n), mode="edge")), shape=(n_rows, f))
+    x = csr_from_scipy(csr, device=device)
+    return SparseInput(csr=x, csr_t=csr_transpose(x))
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedSparseInput(SparseInput):
     """This rank's rows of a row-sharded sparse X (module docstring):
@@ -94,14 +117,11 @@ def build_sharded_sparse_input(attr: sp.spmatrix, *, shard_rows: int,
     the propagator's row grid (``S = shard_rows``), padded with empty rows
     to S, in CSR with its transpose on ``device``."""
     csr = sp.csr_matrix(attr, dtype=np.float32)
-    n, f = csr.shape
+    n = csr.shape[0]
     if shard_rows * n_shards < n:
         raise ValueError(f"shard grid {shard_rows * n_shards} rows < "
                          f"attribute rows {n}")
     lo = rank * shard_rows
-    sub = csr[min(lo, n):min(lo + shard_rows, n)]
-    sub = sp.csr_matrix((sub.data, sub.indices, np.pad(
-        sub.indptr, (0, shard_rows - sub.shape[0]), mode="edge")),
-        shape=(shard_rows, f))
-    x = csr_from_scipy(sub, device=device)
-    return ShardedSparseInput(csr=x, csr_t=csr_transpose(x), rank=rank)
+    x = build_sparse_input(csr[min(lo, n):min(lo + shard_rows, n)],
+                           shard_rows, device=device)
+    return ShardedSparseInput(csr=x.csr, csr_t=x.csr_t, rank=rank)

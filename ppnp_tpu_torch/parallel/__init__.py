@@ -14,3 +14,12 @@ Counterpart of ``ppnp_tpu/parallel``:
 
 Importing this package starts no process group.
 """
+
+from ppnp_tpu_torch.parallel.health import assert_devices_healthy  # noqa: F401
+from ppnp_tpu_torch.parallel.mesh import (  # noqa: F401
+    initialize_distributed, make_mesh,
+)
+from ppnp_tpu_torch.parallel.partition import (  # noqa: F401
+    ShardedGraph, build_sharded_graph,
+)
+from ppnp_tpu_torch.parallel.sharded import ShardedPowerIteration  # noqa: F401

@@ -71,10 +71,10 @@ from ppnp_tpu_torch.models.appnp import (MLP, init_mlp_params, l2_reg,
                                          ppnp_forward)
 from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.ops.mixed import round_like
-from ppnp_tpu_torch.ops.sparse import csr_from_scipy, csr_transpose
 from ppnp_tpu_torch.ops.sparse_input import (ShardedSparseInput,
                                              SparseInput,
-                                             build_sharded_sparse_input)
+                                             build_sharded_sparse_input,
+                                             build_sparse_input)
 from ppnp_tpu_torch.optim import Adam
 from ppnp_tpu_torch.parallel.mesh import all_reduce_sum, is_rank0
 from ppnp_tpu_torch.parallel.sharded import RowSharded, all_gather_rows
@@ -118,7 +118,7 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
                        x_format: str = "auto", x_dtype=None):
     """L1-normalize the attribute matrix and stage it on the propagator's
     device, dense or as a ``SparseInput`` (fc1 through K1; X and Xᵀ in
-    CSR).
+    CSR, ``build_sparse_input``).
 
     ``x_format``: "dense" densifies X (fc1 is then one f32
     ``torch.matmul``); "sparse" keeps it CSR; "auto" picks sparse exactly
@@ -163,8 +163,7 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
             attr_norm, shard_rows=g.shard_rows, n_shards=g.n_shards,
             rank=propagator.mesh.rank, device=device)
     if use_sparse:
-        csr = csr_from_scipy(attr_norm, device=device)
-        return SparseInput(csr=csr, csr_t=csr_transpose(csr))
+        return build_sparse_input(attr_norm, device=device)
     if sharded:
         lo, hi = propagator.row_range
         attr_norm = attr_norm[lo:min(hi, n)]

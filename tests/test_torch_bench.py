@@ -27,6 +27,7 @@ from ppnp_tpu_torch import benchmarks as tb
 from ppnp_tpu_torch.__main__ import main as t_main
 from ppnp_tpu_torch.data.io import save_to_npz
 from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
+from ppnp_tpu_torch.profiling import trace_path
 
 CPU = "cpu"
 ALL = ("xla", "pallas", "fused")
@@ -321,7 +322,7 @@ def test_not_ported_parts_raise(sbm800, tmp_path):
                       "--iters", "1", "--backends", "xla", "--profile",
                       str(tmp_path / "trace"), "--device", "cpu"])
     assert set(res["backends"]) == {"xla"}
-    events = json.loads((tmp_path / "trace" / "trace_rank0.json")
+    events = json.loads(trace_path(tmp_path / "trace")
                         .read_text())["traceEvents"]
     assert any(e.get("name") == "aten::index_add_" for e in events)
     with pytest.raises(SystemExit):

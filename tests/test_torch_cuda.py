@@ -884,7 +884,7 @@ def test_trace_holds_the_kernel_events(dev, tmp_path):
     from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
     from ppnp_tpu_torch.models.appnp import init_mlp_params, ppnp_forward
-    from ppnp_tpu_torch.profiling import trace
+    from ppnp_tpu_torch.profiling import trace, trace_path
     from ppnp_tpu_torch.train import prepare_attr_input
 
     graph = make_attributed_sbm(n_nodes=3000, n_classes=5, n_features=200,
@@ -899,10 +899,65 @@ def test_trace_holds_the_kernel_events(dev, tmp_path):
             for prop in props.values():
                 ppnp_forward(model, x, prop)
         torch.cuda.synchronize()
-    events = json.loads((tmp_path / "trace_rank0.json").read_text())[
-        "traceEvents"]
+    events = json.loads(trace_path(tmp_path).read_text())["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     assert any("spmm_rows_kernel" in k for k in kernels)
     assert any("appnp_fused_kernel" in k for k in kernels)
     names = {e.get("name") for e in events}
     assert {"ppnp/mlp", "ppnp/propagate"} <= names
+
+
+@pytest.mark.parametrize("c", [1, 15, 64])
+def test_ops_spmm_pallas_matches_xla(dev, c):
+    """``ops.spmm`` on the pallas arm (one K1 launch, in the caller's row
+    order) against its xla arm on the card."""
+    from ppnp_tpu_torch.ops import (calc_A_hat, edge_list_from_scipy,
+                                    rcm_permutation, spmm)
+
+    a_hat = calc_A_hat(_matrix(3000, 3000, 0.002, seed=4))
+    edges = edge_list_from_scipy(a_hat, device=dev)
+    csr = csr_from_scipy(a_hat, perm=rcm_permutation(a_hat), device=dev)
+    h = torch.randn(3000, c, device=dev)
+    build.reset_launches()
+    got = spmm(edges, h, csr=csr, backend="pallas")
+    assert build.LAUNCHES["spmm_csr"] == 1
+    torch.testing.assert_close(got, spmm(edges, h), **TOL)
+
+
+def test_example_on_the_card(dev):
+    """``examples/simple_example_torch.py`` for 3 epochs on the pallas and
+    fused arms: the launches of 3 dense-X epochs, the final eval and the
+    hidden table; the two arms' losses and top-5 scores within 1e-5 of
+    each other (the same masks, K1 steps against K3) and the same nodes
+    wherever neighbouring scores differ by more than 1e-5."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "simple_example_torch", Path(__file__).resolve().parents[1]
+        / "examples" / "simple_example_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    want = {"pallas": {"spmm_csr": 3 * 20 + 10 + 10, "spmm_csr_bwd": 3 * 10,
+                       "edge_masks": 3, "dropout_mask": 3 * 2},
+            "fused": {"appnp_fused": 3 * 2 + 1 + 1, "appnp_adjoint": 3,
+                      "edge_masks": 3, "dropout_mask": 3 * 2}}
+    runs = {}
+    for backend, counts in want.items():
+        build.reset_launches()
+        runs[backend] = example.main(["--device", "cuda", "--max-epochs",
+                                      "3", "--backend", backend])
+        assert {k: v for k, v in build.LAUNCHES.items() if v} == counts
+    for name in ("train_loss", "stopping_loss"):
+        np.testing.assert_allclose(
+            [r[name] for r in runs["pallas"]["epochs"]],
+            [r[name] for r in runs["fused"]["epochs"]], **TOL)
+    scores = runs["pallas"]["scores"]
+    np.testing.assert_allclose(scores, runs["fused"]["scores"], **TOL)
+    # ranks whose score stands apart from its neighbours' by more than
+    # 1e-5 hold the same node on both arms
+    gaps = -np.diff(scores, axis=1) > 1e-5
+    apart = (np.pad(gaps, ((0, 0), (1, 0)), constant_values=True)
+             & np.pad(gaps, ((0, 0), (0, 1)), constant_values=True))
+    np.testing.assert_array_equal(runs["pallas"]["top5"][apart],
+                                  runs["fused"]["top5"][apart])

@@ -1,8 +1,8 @@
 """The port stands alone: no jax, no ``ppnp_tpu``, and no silent CPU.
 
-``ppnp_tpu_torch`` must import without jax and without any module of the
-JAX package (not even its numpy-only ones, whose package ``__init__``
-loads jax). Its entry points default to the card and raise when CUDA is
+``ppnp_tpu_torch`` and ``examples/simple_example_torch.py`` must import
+without jax and without any module of the JAX package (not even its
+numpy-only ones, whose package ``__init__`` loads jax). Its entry points default to the card and raise when CUDA is
 absent instead of running on the CPU.
 """
 
@@ -24,7 +24,7 @@ from ppnp_tpu_torch.models.appnp import init_mlp_params
 ROOT = Path(__file__).resolve().parents[1]
 
 _IMPORT_EVERYTHING = textwrap.dedent("""
-    import importlib, pkgutil, sys
+    import importlib, importlib.util, pkgutil, sys
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -40,6 +40,14 @@ _IMPORT_EVERYTHING = textwrap.dedent("""
         ppnp_tpu_torch.__path__, "ppnp_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    # the example and the public names it reaches, under the same finder
+    spec = importlib.util.spec_from_file_location(
+        "simple_example_torch", "examples/simple_example_torch.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    from ppnp_tpu_torch import SparseGraph, load_dataset
+    from ppnp_tpu_torch.ops import PPRPowerIteration, spmm, PPRExact
+    from ppnp_tpu_torch.kernels import spmm_blocked
+    from ppnp_tpu_torch.parallel import ShardedPowerIteration
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "ppnp_tpu"))
     assert not bad, bad
@@ -53,6 +61,12 @@ _SLICE_5 = ("ppnp_tpu_torch.kernels.blocked", "ppnp_tpu_torch.parallel",
             "ppnp_tpu_torch.parallel.sharded")
 # the tracing module and the mixed-precision fc1, likewise
 _SLICE_7 = ("ppnp_tpu_torch.profiling", "ppnp_tpu_torch.ops.mixed")
+# the packages whose __init__ re-exports the public names, and the
+# modules of the public surface's new names, likewise
+_PUBLIC = ("ppnp_tpu_torch.ops", "ppnp_tpu_torch.models",
+           "ppnp_tpu_torch.kernels", "ppnp_tpu_torch.data",
+           "ppnp_tpu_torch.data.io", "ppnp_tpu_torch.ops.propagation",
+           "ppnp_tpu_torch.ops.sparse_input")
 
 
 def test_imports_neither_jax_nor_the_jax_package():
@@ -64,10 +78,12 @@ def test_imports_neither_jax_nor_the_jax_package():
     assert len(names) >= 25  # every module was imported
     assert set(_SLICE_5) <= set(names)
     assert set(_SLICE_7) <= set(names)
+    assert set(_PUBLIC) <= set(names)
 
 
 def test_sources_name_no_jax_import():
-    for path in (ROOT / "ppnp_tpu_torch").rglob("*.py"):
+    for path in [*(ROOT / "ppnp_tpu_torch").rglob("*.py"),
+                 ROOT / "examples" / "simple_example_torch.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
@@ -124,3 +140,13 @@ def test_retrieve_and_bench_default_to_cuda(no_cuda):
         main(["bench", "--iters", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_propagation(iters=1)
+
+
+def test_example_defaults_to_cuda(no_cuda):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "simple_example_torch", ROOT / "examples" / "simple_example_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example.main(["--max-epochs", "1"])

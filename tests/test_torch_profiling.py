@@ -3,7 +3,8 @@
 mirror of the metrics.
 
 A trace is ``torch.profiler``'s Chrome-trace JSON, one file a rank
-(``trace_rank{r}.json``); the forward's regions carry the JAX package's
+(``<session>/trace_rank{r}.json``, a new session directory each time, read
+back through ``trace_path``); the forward's regions carry the JAX package's
 span names (``ppnp/mlp``, ``ppnp/propagate``, ``ppnp/grouped_mlp``,
 ``ppnp/grouped_propagate``). Which chunks are traced follows
 ``ppnp_tpu/train.py:494-589``: the steady-state chunks, or the final eval
@@ -16,6 +17,10 @@ import contextlib
 import io
 import json
 import logging
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -73,7 +78,7 @@ def test_trace_writes_the_spans(port_graph, tmp_path):
         ppnp_forward(model, x, prop, train=True, key=prng.PRNGKey(1))
         grouped_forward(params_g, x, prop, groups=2)
     assert not torch.autograd._profiler_enabled()
-    events = _events(tmp_path / "t" / "trace_rank0.json")
+    events = _events(profiling.trace_path(tmp_path / "t"))
     for name in ("ppnp/mlp", "ppnp/propagate", "ppnp/grouped_mlp",
                  "ppnp/grouped_propagate"):
         assert _count(events, name) == 1, name
@@ -90,10 +95,91 @@ def test_annotate_is_free_without_a_profiler(monkeypatch, tmp_path):
         assert isinstance(span, torch.profiler.record_function)
         with span:
             torch.ones(3).sum()
-    assert _count(_events(tmp_path / "trace_rank0.json"), "x") == 1
+    assert _count(_events(profiling.trace_path(tmp_path)), "x") == 1
     monkeypatch.setattr(profiling.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(profiling.dist, "get_rank", lambda: 3)
     assert profiling.trace_path(tmp_path).name == "trace_rank3.json"
+
+
+def test_two_sessions_keep_both_traces(tmp_path):
+    """Two ``trace`` blocks into one directory leave two sessions, each
+    with a trace that parses and holds its own span; ``trace_path`` names
+    the newest."""
+    for name in ("first", "second"):
+        with profiling.trace(tmp_path):
+            with profiling.annotate(name):
+                torch.ones(3).sum()
+        newest = profiling.trace_path(tmp_path)
+        assert _count(_events(newest), name) == 1
+    sessions = sorted(p.parent for p in tmp_path.glob("*/trace_rank0.json"))
+    assert len(sessions) == 2 and newest.parent == sessions[-1]
+    assert [_count(_events(d / "trace_rank0.json"), "first")
+            for d in sessions] == [1, 0]
+    with pytest.raises(FileNotFoundError, match="no trace session"):
+        profiling.trace_path(tmp_path / "none")
+
+
+_TWO_RANKS = textwrap.dedent("""
+    import sys
+    import torch
+    import torch.distributed as dist
+    from ppnp_tpu_torch import profiling
+
+    rank, store, logdir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            world_size=2, rank=rank)
+    for _ in range(2):
+        with profiling.trace(logdir):
+            torch.ones(3).sum()
+    print(profiling.trace_path(logdir))
+    dist.destroy_process_group()
+""")
+
+
+def test_ranks_of_one_session_share_its_directory(tmp_path):
+    """Two gloo ranks, two sessions: each session's directory holds both
+    ranks' traces side by side, and ``trace_path`` on each rank names its
+    own trace in the newest one."""
+    logdir = tmp_path / "prof"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TWO_RANKS, str(r), str(tmp_path / "store"),
+         str(logdir)], cwd=Path(__file__).resolve().parents[1],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    sessions = sorted(d for d in logdir.iterdir())
+    assert len(sessions) == 2
+    for d in sessions:
+        assert sorted(f.name for f in d.iterdir()) == [
+            "trace_rank0.json", "trace_rank1.json"]
+        for f in d.iterdir():
+            _events(f)
+    assert [Path(out.strip()) for out, _ in outs] == [
+        sessions[-1] / f"trace_rank{r}.json" for r in range(2)]
+
+
+def test_train_then_bench_profile_keep_both(tmp_path, monkeypatch, capsys):
+    """``train --profile D`` then ``bench --training --profile D``: both
+    traces stay, the train run's in the older session."""
+    graph = make_attributed_sbm(n_nodes=800, n_classes=4, n_features=64,
+                                n_edges=3200, seed=5)
+    save_to_npz(tmp_path / "sbm800.npz", graph)
+    monkeypatch.setenv("PPNP_TPU_DATA", str(tmp_path))
+    prof = tmp_path / "p"
+    assert t_main(["train", "--dataset", "sbm800", "--max-epochs", "2",
+                   "--k", "2", "--profile", str(prof), "--device",
+                   "cpu"]) == 0
+    train_trace = profiling.trace_path(prof)
+    assert t_main(["bench", "--dataset", "sbm800", "--training",
+                   "--epochs", "1", "--backends", "xla", "--profile",
+                   str(prof), "--device", "cpu"]) == 0
+    capsys.readouterr()
+    bench_trace = profiling.trace_path(prof)
+    assert bench_trace.parent != train_trace.parent
+    assert sorted(prof.iterdir()) == [train_trace.parent, bench_trace.parent]
+    assert _count(_events(train_trace), "ppnp/mlp") >= 1
+    assert _count(_events(bench_trace), "ppnp/mlp") >= 4
 
 
 def test_step_timer_matches_jax(monkeypatch):
@@ -120,7 +206,7 @@ def test_train_model_traces_steady_state_chunks(port_graph, tmp_path):
         port_graph, prop, idx_split_args=SPLIT, print_interval=0,
         stopping_args={"max_epochs": 6, "patience": 100}, epoch_chunk=2,
         x_format="sparse", profile_dir=str(tmp_path))
-    events = _events(tmp_path / "trace_rank0.json")
+    events = _events(profiling.trace_path(tmp_path))
     assert _count(events, "ppnp/mlp") == _count(events,
                                                  "ppnp/propagate") == 8
     assert res["spmm_gbps"] > 0
@@ -141,7 +227,7 @@ def test_train_model_first_chunk_stop_traces_final_eval(port_graph,
             epoch_chunk=8, x_format="dense", profile_dir=str(tmp_path))
     assert res["last_epoch"] < 8
     assert "first epoch chunk" in caplog.text
-    events = _events(tmp_path / "trace_rank0.json")
+    events = _events(profiling.trace_path(tmp_path))
     assert _count(events, "ppnp/mlp") == 1
 
 
@@ -155,7 +241,7 @@ def test_train_model_stops_the_trace_on_a_non_finite_loss(port_graph,
                                                "patience": 100},
             x_format="dense", profile_dir=str(tmp_path))
     assert not torch.autograd._profiler_enabled()
-    assert _count(_events(tmp_path / "trace_rank0.json"), "ppnp/mlp") >= 2
+    assert _count(_events(profiling.trace_path(tmp_path)), "ppnp/mlp") >= 2
 
 
 def test_bench_profile_traces_the_bench(tmp_path, monkeypatch, capsys):
@@ -171,7 +257,7 @@ def test_bench_profile_traces_the_bench(tmp_path, monkeypatch, capsys):
                    str(tmp_path / "p"), "--device", "cpu"]) == 0
     res = json.loads(capsys.readouterr().out)
     assert res["epochs"] == 2
-    events = _events(tmp_path / "p" / "trace_rank0.json")
+    events = _events(profiling.trace_path(tmp_path / "p"))
     assert _count(events, "ppnp/mlp") >= 8   # 2 runs x 2 epochs x 2
 
 

@@ -39,6 +39,7 @@ from ppnp_tpu_torch.metrics import TensorboardWriter
 from ppnp_tpu_torch.models.appnp import (MLP, init_mlp_params, l2_reg,
                                          params_from_jax, ppnp_forward)
 from ppnp_tpu_torch.ops.sparse_input import ShardedSparseInput, SparseInput
+from ppnp_tpu_torch.profiling import trace_path
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = torch.device("cpu")
@@ -253,7 +254,7 @@ def test_not_ported_options_raise(port_graph, tmp_path, monkeypatch,
                         idx_split_args={"ntrain_per_class": 10,
                                         "nstopping": 60, "nknown": 200,
                                         "seed": 1}, print_interval=0)
-    assert (tmp_path / "trace_rank0.json").is_file()
+    assert trace_path(tmp_path).is_file()
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     with caplog.at_level(logging.WARNING):
         writer = TensorboardWriter(tmp_path / "tb")

@@ -11,6 +11,7 @@ order: loss within 1e-5, weight gradients within rtol 1e-4 / atol 1e-5.
 
 import io
 import json
+import logging
 import sys
 import types
 
@@ -26,6 +27,7 @@ from ppnp_tpu import builders as j_builders
 from ppnp_tpu import train as j_train
 from ppnp_tpu.config import RunConfig as JRunConfig
 from ppnp_tpu.metrics import JsonlWriter as JJsonlWriter
+from ppnp_tpu.metrics import TensorboardWriter as JTensorboardWriter
 from ppnp_tpu.models.appnp import init_mlp_params as j_init_mlp_params
 from ppnp_tpu.models.appnp import l2_reg as j_l2_reg
 from ppnp_tpu.models.appnp import ppnp_forward as j_ppnp_forward
@@ -49,6 +51,7 @@ from ppnp_tpu_torch.models.appnp import (init_mlp_params, l2_reg,
                                          params_from_jax, ppnp_forward)
 from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.optim import Adam
+from ppnp_tpu_torch.profiling import trace_path
 
 CPU = torch.device("cpu")
 HIDDEN = [64]
@@ -228,7 +231,7 @@ def test_train_model_staged_input_and_not_ported(port_graph, tmp_path):
                                  x_format="sparse", profile_dir=str(trace_dir),
                                  **kw)
     assert res["last_epoch"] == 2
-    json.loads((trace_dir / "trace_rank0.json").read_text())
+    json.loads(trace_path(trace_dir).read_text())
 
 
 def _write_dataset(tmp_path, monkeypatch):
@@ -328,7 +331,7 @@ def test_train_cli_not_ported_flags(tmp_path, monkeypatch, capsys):
             _epoch_rows(metrics.read_text())
             for k in ("train_loss", "stopping_accuracy", "stopping_loss")]
     assert sorted(tb.scalars) == sorted(want)
-    events = json.loads((tmp_path / "prof" / "trace_rank0.json")
+    events = json.loads(trace_path(tmp_path / "prof")
                         .read_text())["traceEvents"]
     assert {"ppnp/mlp", "ppnp/propagate"} <= {e.get("name")
                                               for e in events}
@@ -336,3 +339,38 @@ def test_train_cli_not_ported_flags(tmp_path, monkeypatch, capsys):
     writer.write(event="final", train_loss=1.0)
     writer.close()
     assert _FakeSummaryWriter.made[-1].scalars == []
+
+
+class _RaisingSummaryWriter:
+    """A stand-in ``SummaryWriter`` that cannot be made, as tensorflow's
+    raises on a log dir it cannot create."""
+
+    def __init__(self, logdir):
+        raise OSError(f"{logdir} is not a directory")
+
+
+def test_tensorboard_writer_warns_where_the_writer_fails(tmp_path,
+                                                         monkeypatch,
+                                                         caplog, capsys):
+    """A writer whose ``SummaryWriter`` raises on construction warns and
+    mirrors nothing, as the JAX writer does on the same stand-in: its
+    ``write`` and ``close`` do nothing, and ``train --tensorboard`` runs
+    to its end."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard",
+                        types.SimpleNamespace(
+                            SummaryWriter=_RaisingSummaryWriter))
+    for cls, logger in ((TensorboardWriter, "ppnp_tpu_torch.metrics"),
+                        (JTensorboardWriter, "ppnp_tpu.metrics")):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger=logger):
+            writer = cls(tmp_path / "tb")
+        assert "metrics not mirrored" in caplog.text, cls
+        assert "is not a directory" in caplog.text, cls
+        writer.write(event="epoch", epoch=0, train_loss=1.0)
+        writer.close()
+        writer.close()
+    name = _write_dataset(tmp_path, monkeypatch)
+    res = _cli(capsys, ["train", "--dataset", name, "--device", "cpu",
+                        "--max-epochs", "2", "--k", "2", "--tensorboard",
+                        str(tmp_path / "tb")])
+    assert res["last_epoch"] == 1
