@@ -139,13 +139,26 @@ order; any failure exits non-zero and nothing is caught:
    ``build_sparse_input`` on MS
    Academic's X, its CSR arrays equal to the ``SparseInput`` that
    ``train`` stages;
-15. print one ``{"kernels": [...]}`` line (launches per path, the
+15. training at 500k nodes: ``scripts/blocked_train_torch.py``'s ``run``
+   in process at the JAX script's defaults (n = 500,000, nnz(Â) ≈ 10.5 M,
+   f = 512, 16 classes, hidden 64, K = 10, α = 0.1, 16,384 rows a block,
+   no reorder, 150 epochs, patience 100): ``auto`` picks dense X, the
+   launches per epoch (K1 2·K per block forward, K per block backward,
+   one edge-mask launch per block, two dense dropout masks), a finite
+   and falling loss, valtest accuracy ≥ 0.95, seconds for generation,
+   ingest and training, s/epoch and peak memory printed; three epochs
+   profiled; one epoch card vs CPU on 4 blocks of the same generator; K1
+   forward and backward on one 500 k block at c = 16 and 64 and the
+   dense dropout mask of the 500,000 × 512 X, each beside its plain
+   version and bound (the mask bit-equal);
+16. print one ``{"kernels": [...]}`` line (launches per path, the
    ``retrieve <arm>``, ``bench <name>``, ``predict blocked``, ``train
    blocked``, ``bench blocked``, ``predict sharded <arm>``, ``bench
    scaling <arm>``, ``train sharded <arm> <X layout>``, ``predict
    hier <arm>``, ``train dense <dtype> <arm>``, ``reproduce bf16
    pallas``, ``train profile <arm>``, ``bench training profile``,
-   ``spmm pallas`` and ``example <arm>`` paths included), then the card
+   ``spmm pallas``, ``example <arm>`` and ``blocked_train 500k`` paths
+   included), then the card
    line, then ``{"ok": true, "device":
    {...}}`` as the last line.
 
@@ -1183,6 +1196,22 @@ def serve_checkpoint(dev, ckpt, trained_on: str) -> None:
 
 
 def profile_epochs(dev, backend: str, reps: int = 5) -> None:
+    """``profile_training_epochs`` of the smoke dataset with sparse X on
+    ``backend``."""
+    from ppnp_tpu_torch.builders import build_propagator, load_graph
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    cfg = RunConfig(dataset=DATASET, backend=backend)
+    graph = load_graph(cfg)
+    prop = build_propagator(cfg, graph, device=dev)
+    x = prepare_attr_input(graph, prop, x_format="sparse")
+    profile_training_epochs(f"train --backend {backend}", graph, prop, x,
+                            reps)
+
+
+def profile_training_epochs(name: str, graph, prop, x,
+                            reps: int = 5) -> None:
     """Where a training epoch's time goes: ``reps`` epochs (train forward,
     backward, Adam, stopping eval, one device-to-host read) under
     ``torch.profiler`` after two unprofiled ones: host-clock ms per
@@ -1191,22 +1220,16 @@ def profile_epochs(dev, backend: str, reps: int = 5) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ppnp_tpu_torch.builders import build_propagator, load_graph
-    from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.models.appnp import (init_mlp_params, l2_reg,
                                              ppnp_forward)
     from ppnp_tpu_torch.ops import prng
     from ppnp_tpu_torch.optim import Adam
     from ppnp_tpu_torch.preprocessing import gen_splits
-    from ppnp_tpu_torch.train import (_mean, _nll, default_idx_split_args,
-                                      prepare_attr_input)
+    from ppnp_tpu_torch.train import _mean, _nll, default_idx_split_args
 
-    cfg = RunConfig(dataset=DATASET, backend=backend)
-    graph = load_graph(cfg)
+    dev = prop.device
     labels = np.asarray(graph.labels)
     idx, idx_stop, _ = gen_splits(labels, default_idx_split_args)
-    prop = build_propagator(cfg, graph, device=dev)
-    x = prepare_attr_input(graph, prop, x_format="sparse")
     key_init, key_epochs = prng.split(prng.PRNGKey(0))
     model = init_mlp_params(x.shape[1], [64], int(labels.max()) + 1,
                             key=key_init, device=dev)
@@ -1245,7 +1268,7 @@ def profile_epochs(dev, backend: str, reps: int = 5) -> None:
     top_dev = sorted(on_card, key=lambda e: -e.device_time_total)[:4]
     on_host = [e for e in events if e.device_type == DeviceType.CPU]
     top_host = sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:6]
-    print(f"profile train --backend {backend}: {wall:.3f} ms/epoch under "
+    print(f"profile {name}: {wall:.3f} ms/epoch under "
           f"the profiler, device busy {busy:.4f} ms/epoch "
           f"({busy / wall:.3f}); by device time: "
           + "; ".join(f"{e.key[:40]} x{e.count // reps} "
@@ -1260,9 +1283,23 @@ def profile_epochs(dev, backend: str, reps: int = 5) -> None:
 def epoch_on_card_vs_cpu(dev, backend: str) -> None:
     """One training epoch's loss and weight gradients on the card (the
     kernels) against the same epoch on the CPU (the plain versions) from
-    the same key and weights."""
+    the same key and weights, on the smoke dataset with sparse X."""
     from ppnp_tpu_torch.builders import build_propagator, load_graph
     from ppnp_tpu_torch.config import RunConfig
+
+    cfg = RunConfig(dataset=DATASET, backend=backend)
+    graph = load_graph(cfg)
+    one_epoch_card_vs_cpu(
+        dev, backend, graph,
+        lambda d: build_propagator(cfg, graph, device=d), "sparse")
+
+
+def one_epoch_card_vs_cpu(dev, name: str, graph, make_prop,
+                          x_format: str) -> None:
+    """One epoch (seed 0's weights, epoch 3's key) of ``graph`` through
+    ``make_prop(device)``'s propagator and X staged as ``x_format``, on
+    the CPU and on the card: the loss within RTOL/ATOL, the weight
+    gradients within GRAD_RTOL/GRAD_ATOL."""
     from ppnp_tpu_torch.models.appnp import (init_mlp_params, l2_reg,
                                              ppnp_forward)
     from ppnp_tpu_torch.ops import prng
@@ -1270,8 +1307,6 @@ def epoch_on_card_vs_cpu(dev, backend: str) -> None:
     from ppnp_tpu_torch.train import (_nll, default_idx_split_args,
                                       prepare_attr_input)
 
-    cfg = RunConfig(dataset=DATASET, backend=backend)
-    graph = load_graph(cfg)
     labels = np.asarray(graph.labels)
     idx, _, _ = gen_splits(labels, default_idx_split_args)
     n_classes = int(labels.max()) + 1
@@ -1279,8 +1314,8 @@ def epoch_on_card_vs_cpu(dev, backend: str) -> None:
     key = prng.fold_in(key_epochs, 3)
     out = []
     for d in (torch.device("cpu"), dev):
-        prop = build_propagator(cfg, graph, device=d)
-        x = prepare_attr_input(graph, prop, x_format="sparse")
+        prop = make_prop(d)
+        x = prepare_attr_input(graph, prop, x_format=x_format)
         model = init_mlp_params(x.shape[1], [64], n_classes, key=key_init,
                                 device=d)
         i = torch.from_numpy(idx).to(d)
@@ -1292,7 +1327,7 @@ def epoch_on_card_vs_cpu(dev, backend: str) -> None:
                                   for lin in model.layers]))
     (l_cpu, g_cpu), (l_card, g_card) = out
     err = [float((a - b).abs().max()) for a, b in zip(g_card, g_cpu)]
-    print(f"one epoch ({backend}) card vs CPU: loss {l_card:.7f} vs "
+    print(f"one epoch ({name}) card vs CPU: loss {l_card:.7f} vs "
           f"{l_cpu:.7f}, grad max_abs_err {err}")
     np.testing.assert_allclose(l_card, l_cpu, rtol=RTOL, atol=ATOL)
     for a, b in zip(g_card, g_cpu):
@@ -1761,6 +1796,42 @@ def bench_path(dev):
     return launches
 
 
+def read_rows(op) -> int:
+    """The input rows an operator reads: its distinct columns (a block's
+    window reaches into padding rows no edge reads, and a boundary
+    operator's columns skip the shard's own block)."""
+    return int(torch.unique(op.col).numel())
+
+
+def operator_records(name, op, op_t, h, init, g, scale):
+    """Forward (with init) and backward records of K1 on one operator at
+    the weights ``scale·val``, each beside ``torch.addmm`` (forward) or
+    ``torch.sparse.mm`` (backward); h is the operator's columns, g its
+    rows' cotangent. The bound reads only the rows of h and g that an
+    entry gathers."""
+    from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_bwd,
+                                             spmm_csr_plain)
+    c = h.shape[1]
+    w, w_t = scale * op.val, scale * op_t.val
+    lib, lib_t = csr_tensor(op, w), csr_tensor(op_t, w_t)
+    fwd = record(f"K1 {name}", lambda: spmm_csr(op, h, w, init),
+                 lambda: spmm_csr_plain(op, h, w, init),
+                 lambda: torch.addmm(init, lib, h),
+                 (op.n_rows + 1) * 4 + op.nnz * 8
+                 + (read_rows(op) + 2 * op.n_rows) * c * 4,
+                 2 * op.nnz * c + op.n_rows * c)
+    bwd = record(f"K1 bwd {name}", lambda: spmm_csr_bwd(op_t, g, w_t),
+                 lambda: spmm_csr_plain(op_t, g, w_t),
+                 lambda: torch.sparse.mm(lib_t, g),
+                 (op_t.n_rows + 1) * 4 + op_t.nnz * 8
+                 + (read_rows(op_t) + op_t.n_rows) * c * 4,
+                 2 * op_t.nnz * c)
+    print(f"K1 {name}: bound reads {read_rows(op)} of {op.n_cols} H rows "
+          f"forward, {read_rows(op_t)} of {op_t.n_cols} cotangent rows "
+          "backward")
+    return fwd, bwd
+
+
 def block_and_shard_records(dev):
     """K1 at the operator shapes of the blocked and the sharded paths on
     MS Academic (c = 15, the propagation step's shared (1-α) plane), each
@@ -1797,35 +1868,6 @@ def block_and_shard_records(dev):
         return torch.from_numpy(rng.randn(rows, c).astype(np.float32)).to(
             dev)
 
-    def read_rows(op) -> int:
-        """The input rows an operator reads: its distinct columns (a
-        block's window reaches into padding rows no edge reads, and a
-        boundary operator's columns skip the shard's own block)."""
-        return int(torch.unique(op.col).numel())
-
-    def held(name, op, op_t, h, init, g):
-        """Forward (with init) and backward records of one operator; h is
-        the operator's columns, g its rows' cotangent. The bound reads
-        only the rows of h and g that an entry gathers."""
-        w, w_t = (1.0 - alpha) * op.val, (1.0 - alpha) * op_t.val
-        lib, lib_t = csr_tensor(op, w), csr_tensor(op_t, w_t)
-        fwd = record(f"K1 {name}", lambda: spmm_csr(op, h, w, init),
-                     lambda: spmm_csr_plain(op, h, w, init),
-                     lambda: torch.addmm(init, lib, h),
-                     (op.n_rows + 1) * 4 + op.nnz * 8
-                     + (read_rows(op) + 2 * op.n_rows) * c * 4,
-                     2 * op.nnz * c + op.n_rows * c)
-        bwd = record(f"K1 bwd {name}", lambda: spmm_csr_bwd(op_t, g, w_t),
-                     lambda: spmm_csr_plain(op_t, g, w_t),
-                     lambda: torch.sparse.mm(lib_t, g),
-                     (op_t.n_rows + 1) * 4 + op_t.nnz * 8
-                     + (read_rows(op_t) + op_t.n_rows) * c * 4,
-                     2 * op_t.nnz * c)
-        print(f"K1 {name}: bound reads {read_rows(op)} of {op.n_cols} H "
-              f"rows forward, {read_rows(op_t)} of {op_t.n_cols} cotangent "
-              "rows backward")
-        return fwd, bwd
-
     fwd, bwd = {}, {}
     # the blocked plan of --backend blocked at its default rows_per_block
     bcsr = build_blocked_csr(a_hat, device=dev)
@@ -1839,9 +1881,9 @@ def block_and_shard_records(dev):
     for b, (blk, blk_t, lo) in enumerate(zip(bcsr.blocks, bcsr.blocks_t,
                                              bcsr.col_lo)):
         rows = slice(b * r, (b + 1) * r)
-        fwd[f"block{b}"], bwd[f"block{b}"] = held(
+        fwd[f"block{b}"], bwd[f"block{b}"] = operator_records(
             f"blocked step, block {b} ({r} x {hw})", blk, blk_t,
-            hp[lo:lo + hw], init[rows], gp[rows])
+            hp[lo:lo + hw], init[rows], gp[rows], 1.0 - alpha)
     a_rcm = csr_from_scipy(a_hat, perm=rcm_permutation(a_hat), device=dev)
     stitched = torch.cat([spmm_csr(blk, hp[lo:lo + hw],
                                    (1.0 - alpha) * blk.val,
@@ -1877,14 +1919,16 @@ def block_and_shard_records(dev):
         h_loc, init_d = h[rows], alpha * h[rows]
         print(f"shard {d}: interior nnz {op.interior.nnz}, boundary nnz "
               f"{op.boundary.nnz} over {nb} received rows")
-        fwd[f"shard{d}_interior"], bwd[f"shard{d}_interior"] = held(
-            f"shard {d}/4 interior ({s} x {s})", op.interior, op.interior_t,
-            h_loc, init_d, g[rows])
+        fwd[f"shard{d}_interior"], bwd[f"shard{d}_interior"] = \
+            operator_records(f"shard {d}/4 interior ({s} x {s})",
+                             op.interior, op.interior_t, h_loc, init_d,
+                             g[rows], 1.0 - alpha)
         out_i = spmm_csr(op.interior, h_loc, (1.0 - alpha) * op.interior.val,
                          init_d)
-        fwd[f"shard{d}_boundary"], bwd[f"shard{d}_boundary"] = held(
-            f"shard {d}/4 boundary ({s} x {nb})", op.boundary,
-            op.boundary_t, recv, out_i, g[rows])
+        fwd[f"shard{d}_boundary"], bwd[f"shard{d}_boundary"] = \
+            operator_records(f"shard {d}/4 boundary ({s} x {nb})",
+                             op.boundary, op.boundary_t, recv, out_i,
+                             g[rows], 1.0 - alpha)
         outs.append(spmm_csr(op.boundary, recv,
                              (1.0 - alpha) * op.boundary.val, out_i))
     a_plain = csr_from_scipy(a_rel, device=dev)
@@ -1950,9 +1994,10 @@ def block_and_shard_records(dev):
                                                 tables)):
             part = ("interior", "ici", "dcn")[p]
             if p > 0:
-                fwd[f"hier{d}_{part}"], bwd[f"hier{d}_{part}"] = held(
-                    f"hier 2x2 rank {d} {part} ({s} x {m.n_cols})", m, m_t,
-                    table, out, g[rows])
+                fwd[f"hier{d}_{part}"], bwd[f"hier{d}_{part}"] = \
+                    operator_records(
+                        f"hier 2x2 rank {d} {part} ({s} x {m.n_cols})", m,
+                        m_t, table, out, g[rows], 1.0 - alpha)
             out = spmm_csr(m, table, (1.0 - alpha) * m.val, out)
         outs.append(out)
     err = compare("hierarchical step (2 x 2) stitched vs the unsharded "
@@ -1966,11 +2011,18 @@ def block_and_shard_records(dev):
 BLOCKED_EPOCHS = 20   # train --backend blocked
 
 
-def blocked_launches_per_epoch(niter: int, n_blocks: int) -> dict:
-    """Kernel launches of one blocked training epoch with sparse X: the
-    pallas arm's, with each propagation step K1 once per block (forward
-    and backward) and the step masks one launch per block (the K planes
-    of the block and its transpose)."""
+def blocked_launches_per_epoch(niter: int, n_blocks: int,
+                               x_format: str = "sparse") -> dict:
+    """Kernel launches of one blocked training epoch: the pallas arm's,
+    with each propagation step K1 once per block (forward and backward)
+    and the step masks one launch per block (the K planes of the block
+    and its transpose). Sparse X adds fc1's K1 in both forwards, its dW
+    and X's edge masks; dense X adds a dropout_mask launch for X in their
+    place (``bf16_launches_per_epoch``)."""
+    if x_format == "dense":
+        return {"spmm_csr": 2 * n_blocks * niter,
+                "spmm_csr_bwd": n_blocks * niter, "edge_masks": n_blocks,
+                "dropout_mask": 2}
     return {"spmm_csr": 1 + n_blocks * niter + 1 + n_blocks * niter,
             "spmm_csr_bwd": n_blocks * niter + 1,
             "edge_masks": 1 + n_blocks, "dropout_mask": 1}
@@ -3244,6 +3296,231 @@ def public_surface_path(dev):
     return launches
 
 
+# phase 15: scripts/blocked_train_torch.py at the JAX script's defaults
+TRAIN_500K = 500_000       # nodes
+TRAIN_500K_EPOCHS = 150    # max_epochs (patience 100)
+TRAIN_500K_VALTEST = 0.95  # the task is near-separable
+TRAIN_500K_CPU_BLOCKS = 4  # the card-vs-CPU epoch: 4 blocks of the same plan
+
+
+def load_blocked_train():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "blocked_train_torch", ROOT / "scripts" / "blocked_train_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script
+
+
+LONG_SLEEP_CYCLES = 400_000_000   # ~0.2 s of GPU clock
+
+
+def sequence_ms(fn, reps: int = 3) -> float:
+    """Device ms of one ``fn()`` call whose launches are all enqueued
+    behind one long sleep kernel (a call of hundreds of launches), median
+    of ``reps``; raises where enqueueing outlasted the sleep."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        asleep, start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(3))
+        asleep.record()
+        torch.cuda._sleep(LONG_SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        enqueue = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if enqueue > asleep.elapsed_time(start):
+            raise SystemExit(f"sequence_ms: enqueueing took {enqueue:.1f} "
+                             "ms, longer than the sleep")
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def propagation_device_ms(prop, c: int) -> None:
+    """Device ms of the blocked propagation of a training epoch, each
+    call's launches queued behind one long sleep: the eval forward
+    (n_blocks·K K1 launches), the train forward (the same with the
+    blocks' edge masks) and train forward + backward; ms per K1 launch
+    beside one block's K1 repeated (inputs in L2) and after a write that
+    evicts L2."""
+    from ppnp_tpu_torch.kernels.spmm import spmm_csr
+    from ppnp_tpu_torch.ops import prng
+
+    bcsr, niter = prop.blocked, prop.niter
+    h = torch.from_numpy(np.random.RandomState(16).randn(
+        bcsr.n_rows, c).astype(np.float32)).to(prop.device)
+    cot = torch.ones_like(h)
+    key = prng.PRNGKey(16)
+
+    def eval_fwd():
+        with torch.no_grad():
+            prop(h)
+
+    def train_fwd():
+        with torch.no_grad():
+            prop(h, key=key, train=True)
+
+    def train_fwd_bwd():
+        hh = h.detach().requires_grad_()
+        (prop(hh, key=key, train=True) * cot).sum().backward()
+
+    # one block's K1, the same call repeated (its inputs stay in L2) and
+    # after a 256 MB write between calls (L2 holds 50 MB)
+    b, alpha = bcsr.n_blocks // 2, prop.alpha
+    blk, lo, hw = bcsr.blocks[b], bcsr.col_lo[b], bcsr.hw
+    hp = torch.zeros(bcsr.n_pad, c, device=prop.device)
+    w = (1.0 - alpha) * blk.val
+    wipe = torch.empty(64 * 2 ** 20, device=prop.device)
+    warm = time_ms(lambda: spmm_csr(blk, hp[lo:lo + hw], w))
+    wipe_ms = time_ms(lambda: wipe.fill_(1.0))
+    cold = time_ms(lambda: (wipe.fill_(1.0),
+                            spmm_csr(blk, hp[lo:lo + hw], w))) - wipe_ms
+    print(f"K1 on block {b} at c = {c}: {warm:.5f} ms repeated (L2 warm), "
+          f"{cold:.5f} ms after a 256 MB write ({wipe_ms:.5f} ms, "
+          "subtracted)")
+    del wipe
+    # every block's K1 (repeated), beside its longest row
+    per = []
+    for blk, lo in zip(bcsr.blocks, bcsr.col_lo):
+        w = (1.0 - alpha) * blk.val
+        per.append((time_ms(lambda: spmm_csr(blk, hp[lo:lo + hw], w),
+                            reps=5),
+                    int((blk.row_ptr[1:] - blk.row_ptr[:-1]).max())))
+    print(f"K1 per block at c = {c} (ms repeated, longest row): "
+          + ", ".join(f"{i}: {t:.5f} ({m})" for i, (t, m) in enumerate(per))
+          + f"; sum {sum(t for t, _ in per):.4f} ms a step")
+
+    launches = bcsr.n_blocks * niter
+    ms = {name: sequence_ms(fn) for name, fn in (
+        ("eval", eval_fwd), ("train_fwd", train_fwd),
+        ("train_fwd_bwd", train_fwd_bwd))}
+    print(f"blocked propagation at 500k, device ms a call (launches queued "
+          f"behind one sleep): eval {ms['eval']:.4f} ({launches} K1, "
+          f"{ms['eval'] * 1e3 / launches:.3f} us each), train forward "
+          f"{ms['train_fwd']:.4f} (+{bcsr.n_blocks} edge-mask launches), "
+          f"train forward + backward {ms['train_fwd_bwd']:.4f} "
+          f"(+{launches} K1 bwd)")
+
+
+def blocked_train_path(dev):
+    """Phase 15: ``scripts/blocked_train_torch.py``'s ``run`` in process
+    at the JAX script's defaults (n = 500,000, nnz(Â) ≈ 10.5 M, 16
+    classes, f = 512, hidden 64, K = 10, α = 0.1, 16,384 rows a block,
+    150 epochs, patience 100): dense X, the launches per epoch, a finite
+    and falling loss, valtest ≥ TRAIN_500K_VALTEST; one epoch card vs CPU
+    on TRAIN_500K_CPU_BLOCKS blocks of the same generator; K1 forward and
+    backward on one 500 k block at c = 16 and c = 64, and the dense
+    dropout mask of the 500,000 × 512 X, each beside its plain version
+    and bound. Returns (launch counts of the path, records to merge)."""
+    from ppnp_tpu_torch.kernels import build
+    from ppnp_tpu_torch.kernels.blocked import build_blocked_csr
+    from ppnp_tpu_torch.kernels.masks import (dropout_masks,
+                                              dropout_masks_plain)
+    from ppnp_tpu_torch.metrics import JsonlWriter
+    from ppnp_tpu_torch.ops import prng
+    from ppnp_tpu_torch.ops.dropout import quantized_keep
+    from ppnp_tpu_torch.ops.normalize import calc_A_hat
+    from ppnp_tpu_torch.ops.propagation import PPRPowerIteration
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    script = load_blocked_train()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out, _, prop = script.run(TRAIN_500K, TRAIN_500K_EPOCHS, dev,
+                              metrics=JsonlWriter(fileobj=buf))
+    torch.cuda.synchronize()
+    got = dict(build.LAUNCHES)
+    print(json.dumps(out))
+    bcsr, niter = prop.blocked, prop.niter
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()]
+    losses = [r["train_loss"] for r in rows if r["event"] == "epoch"]
+    epochs = out["epochs_run"]
+    per = blocked_launches_per_epoch(niter, bcsr.n_blocks, "dense")
+    want = {k: per.get(k, 0) * epochs for k in got}
+    want["spmm_csr"] += bcsr.n_blocks * niter   # the final evaluation
+    print(f"blocked_train 500k: {bcsr.n_blocks} blocks of "
+          f"{bcsr.rows_per_block} rows, window {bcsr.hw}, nnz {bcsr.nnz}; "
+          f"gen {out['gen_s']:.3f} s, ingest {out['ingest_s']:.3f} s, "
+          f"train {out['train_wall_s']:.3f} s, {epochs} epochs (best "
+          f"{out['best_epoch']}), s/epoch (median) "
+          f"{out['s_per_epoch_median']:.6f}, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, valtest {out['valtest_accuracy']:.4f}, peak "
+          f"memory {out['peak_mem_gb']:.3f} GB, launches per epoch {per}")
+    if out["x_format"] != "dense" or out["n"] != TRAIN_500K:
+        raise SystemExit(f"blocked_train 500k: x_format {out['x_format']} "
+                         f"at n = {out['n']}, expected dense X")
+    if got != want or len(losses) != epochs:
+        raise SystemExit(f"blocked_train 500k: {len(losses)} epochs, "
+                         f"launches {got}, expected {want}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit(f"blocked_train 500k: loss not finite and "
+                         f"falling: {losses}")
+    if not out["valtest_accuracy"] >= TRAIN_500K_VALTEST:
+        raise SystemExit(f"blocked_train 500k: valtest accuracy "
+                         f"{out['valtest_accuracy']} < {TRAIN_500K_VALTEST}")
+
+    # where an epoch's time goes, on the graph run() trained
+    g = script.make_banded_classified(
+        TRAIN_500K, n_edges=TRAIN_500K * script.EDGES_PER_NODE,
+        bandwidth=script.BANDWIDTH, n_classes=script.N_CLASSES,
+        n_features=script.N_FEATURES, nnz_per_row=script.NNZ_PER_ROW)
+    profile_training_epochs("blocked_train 500k", g, prop,
+                            prepare_attr_input(g, prop), reps=3)
+    del g
+    propagation_device_ms(prop, script.N_CLASSES)
+
+    # one epoch card vs CPU on the first blocks' worth of the generator
+    n_cpu = TRAIN_500K_CPU_BLOCKS * bcsr.rows_per_block
+    g = script.make_banded_classified(
+        n_cpu, n_edges=n_cpu * script.EDGES_PER_NODE,
+        bandwidth=script.BANDWIDTH, n_classes=script.N_CLASSES,
+        n_features=script.N_FEATURES, nnz_per_row=script.NNZ_PER_ROW)
+    a_small = calc_A_hat(g.adj_matrix)
+
+    def make_prop(d):
+        return PPRPowerIteration(
+            alpha=prop.alpha, niter=niter, drop_prob=prop.drop_prob,
+            backend="blocked", blocked=build_blocked_csr(
+                a_small, rows_per_block=bcsr.rows_per_block, reorder=None,
+                device=d))
+    one_epoch_card_vs_cpu(dev, f"blocked, n = {n_cpu}, dense X", g,
+                          make_prop, "dense")
+
+    # K1 on a middle block of the 500 k plan, its window as a row view
+    b, r, alpha = bcsr.n_blocks // 2, bcsr.rows_per_block, prop.alpha
+    blk, blk_t, lo = bcsr.blocks[b], bcsr.blocks_t[b], bcsr.col_lo[b]
+    rng = np.random.RandomState(15)
+    fwd, bwd = {}, {}
+    for c in (script.N_CLASSES, HIDDEN):
+        hp, gp = (torch.from_numpy(rng.randn(k, c).astype(np.float32)).to(
+            dev) for k in (bcsr.hw, r))
+        fwd[f"blocked500k_c{c}"], bwd[f"blocked500k_c{c}"] = \
+            operator_records(f"500k block {b} ({r} x {bcsr.hw}, c = {c})",
+                             blk, blk_t, hp, alpha * gp, gp, 1.0 - alpha)
+    print(f"500k block {b}: nnz {blk.nnz}, col_lo {lo}")
+
+    # the dropout mask of the 500,000 x 512 X, one key
+    _, thresh = quantized_keep(prop.drop_prob)
+    shape = (out["n"], out["n_features"])
+    keys = prng.split(prng.fold_in(prng.PRNGKey(0), 88), 1)
+    words = shape[0] * -(-shape[1] // 4)
+    mask = record(
+        f"dropout mask (dense X, {shape[0]} x {shape[1]}, 1 key)",
+        lambda: (dropout_masks(keys, shape, thresh, dev),),
+        lambda: (dropout_masks_plain(keys, shape, thresh, dev),), None,
+        shape[0] * shape[1], 0,
+        exact_ref=(dropout_masks_plain(keys, shape, thresh),),
+        int_ops=draw_ops(words, DRAW_BOTH))
+    return ({"blocked_train 500k": got},
+            {"spmm_csr": fwd, "spmm_csr_bwd": bwd,
+             "dropout_mask": {"x_dense_500k": mask}})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3325,6 +3602,15 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(public_surface_path(dev))
     print(f"public surface and example phase: "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    train_500k, extra = blocked_train_path(dev)
+    launches.update(train_500k)
+    for name, more in extra.items():
+        recs[name].update(more, max_abs_err=max(
+            [recs[name]["max_abs_err"]]
+            + [r["max_abs_err"] for r in more.values()]))
+    print(f"training at 500k nodes phase: "
           f"{time.perf_counter() - t0:.2f} s")
 
     meta = {

@@ -238,7 +238,8 @@ def train_models(
         x = x_prepared
     else:
         x = prepare_attr_input(graph, propagator, x_format=x_format,
-                               x_dtype=x_dtype)
+                               x_dtype=x_dtype,
+                               hidden=max(hidden_units, default=64))
 
     n_classes = int(labels_np.max()) + 1
     key_epochs_g, models = [], []

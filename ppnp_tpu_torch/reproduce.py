@@ -132,7 +132,8 @@ def run_seed_sweep(cfg: RunConfig,
     # X is seed-independent: stage it once for the whole sweep
     kwargs["x_prepared"] = prepare_attr_input(
         graph, propagator, x_format=kwargs.get("x_format", "auto"),
-        x_dtype=kwargs.get("x_dtype"))
+        x_dtype=kwargs.get("x_dtype"),
+        hidden=max(kwargs["hidden_units"], default=64))
 
     accs: List[float] = []
     f1s: List[float] = []

@@ -87,6 +87,11 @@ __all__ = ["train_model", "get_predictions", "prepare_attr_input",
 
 _X_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# The JAX package's VMEM limit (``ppnp_tpu/kernels/spmm.py:68``), the
+# bound on the sparse fc1's operands in its "auto" rule: kept so that
+# "auto" picks the JAX layout of X, and so the same dropout stream.
+_FC1_SPARSE_LIMIT_BYTES = 100 * 1024 * 1024
+
 default_idx_split_args: Dict[str, int] = {
     "ntrain_per_class": 20,
     "nstopping": 500,
@@ -115,19 +120,27 @@ def _warn_sparse_dtype(dtype: Optional[torch.dtype]) -> None:
 
 
 def prepare_attr_input(graph: SparseGraph, propagator, *,
-                       x_format: str = "auto", x_dtype=None):
+                       x_format: str = "auto", x_dtype=None,
+                       hidden: int = 64):
     """L1-normalize the attribute matrix and stage it on the propagator's
     device, dense or as a ``SparseInput`` (fc1 through K1; X and Xᵀ in
     CSR, ``build_sparse_input``).
 
     ``x_format``: "dense" densifies X (fc1 is then one f32
-    ``torch.matmul``); "sparse" keeps it CSR; "auto" picks sparse exactly
-    when X is scipy-sparse, its dense form has at least 16 M entries
-    (n·f ≥ 16,000,000) and at most 5 % of them are nonzero. This is the
-    JAX rule (``ppnp_tpu/train.py:209-218``) without its VMEM term, which
-    describes the TPU's on-chip memory and means nothing on this card. On
-    the four surrogates it chooses as the JAX rule does: sparse only for
-    ms_academic (n·f = 124.7 M at 0.12 % density).
+    ``torch.matmul``); "sparse" keeps it CSR; "auto" applies the JAX
+    rule (``ppnp_tpu/train.py:208-218``), threshold included: sparse
+    exactly when X is scipy-sparse, its dense form has at least 16 M
+    entries (n·f ≥ 16,000,000), at most 5 % of them are nonzero, and the
+    fc1 operands that the TPU kernel keeps in VMEM,
+    ``(3·n + 2·f)·hidden·4`` bytes, fit ``_FC1_SPARSE_LIMIT_BYTES``
+    (100 MiB). That bound describes the TPU, not this card, but dense and
+    sparse fc1 draw different dropout streams, so the layout decides
+    which model a call trains: the port keeps the JAX threshold so that
+    ``auto`` trains the same model. ``hidden`` is the first hidden width
+    (``train_model`` passes ``max(hidden_units)``). On the four
+    surrogates at hidden 64 only ms_academic is sparse (n·f = 124.7 M at
+    0.12 % density, 17.6 MB of fc1 operands); from n ≈ 136 k at hidden
+    64 X stays dense.
 
     ``x_dtype``: None or float32, or bfloat16 (``_as_x_dtype``): a
     dense X is staged as ``bf16(f32 X)`` (round to nearest even, as
@@ -147,9 +160,12 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
     sharded = isinstance(propagator, RowSharded)
     n, f = attr_norm.shape
     if x_format == "auto":
+        # every unsharded arm has n rows (JAX: edges.n_rows = n)
+        fc1_bytes = (3 * n + 2 * f) * hidden * 4
         use_sparse = (sp.issparse(attr_norm) and not sharded
                       and n * f >= 16_000_000
-                      and attr_norm.nnz <= 0.05 * n * f)
+                      and attr_norm.nnz <= 0.05 * n * f
+                      and fc1_bytes <= _FC1_SPARSE_LIMIT_BYTES)
     elif x_format in ("dense", "sparse"):
         use_sparse = x_format == "sparse"
     else:
@@ -341,7 +357,8 @@ def train_model(
         x = x_prepared
     else:
         x = prepare_attr_input(graph, propagator, x_format=x_format,
-                               x_dtype=x_dtype)
+                               x_dtype=x_dtype,
+                               hidden=max(hidden_units, default=64))
 
     dev = propagator.device
 

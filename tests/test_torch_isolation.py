@@ -1,7 +1,7 @@
 """The port stands alone: no jax, no ``ppnp_tpu``, and no silent CPU.
 
-``ppnp_tpu_torch`` and ``examples/simple_example_torch.py`` must import
-without jax and without any module of the JAX package (not even its
+``ppnp_tpu_torch``, ``examples/simple_example_torch.py`` and
+``scripts/blocked_train_torch.py`` must import without jax and without any module of the JAX package (not even its
 numpy-only ones, whose package ``__init__`` loads jax). Its entry points default to the card and raise when CUDA is
 absent instead of running on the CPU.
 """
@@ -44,6 +44,10 @@ _IMPORT_EVERYTHING = textwrap.dedent("""
     spec = importlib.util.spec_from_file_location(
         "simple_example_torch", "examples/simple_example_torch.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    # the 500k-node training script, likewise
+    spec = importlib.util.spec_from_file_location(
+        "blocked_train_torch", "scripts/blocked_train_torch.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
     from ppnp_tpu_torch import SparseGraph, load_dataset
     from ppnp_tpu_torch.ops import PPRPowerIteration, spmm, PPRExact
     from ppnp_tpu_torch.kernels import spmm_blocked
@@ -83,7 +87,8 @@ def test_imports_neither_jax_nor_the_jax_package():
 
 def test_sources_name_no_jax_import():
     for path in [*(ROOT / "ppnp_tpu_torch").rglob("*.py"),
-                 ROOT / "examples" / "simple_example_torch.py"]:
+                 ROOT / "examples" / "simple_example_torch.py",
+                 ROOT / "scripts" / "blocked_train_torch.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
@@ -150,3 +155,17 @@ def test_example_defaults_to_cuda(no_cuda):
     spec.loader.exec_module(example)
     with pytest.raises(RuntimeError, match="CUDA"):
         example.main(["--max-epochs", "1"])
+
+
+def test_blocked_train_script_defaults_to_cuda(no_cuda):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "blocked_train_torch", ROOT / "scripts" / "blocked_train_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        script.main(["2048", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        script.run(2048, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        script.main(["2048", "1", "--device", "cuda"])
