@@ -1,0 +1,135 @@
+"""Graph generators, frozen: the inputs of every configuration.
+
+Copies of the port's two synthetic generators, with the same numpy
+draws in the same order, so a configuration's file and its seed fix the
+graph whatever later changes are made to the program:
+
+- ``attributed_sbm``: ``ppnp_tpu_torch/data/synthetic.py``'s
+  ``make_attributed_sbm``, the MS Academic surrogate at the PPNP paper's
+  published statistics (the real ``.npz`` is not in the repository);
+- ``banded``: ``scripts/blocked_train_torch.py``'s
+  ``make_banded_classified``, the 500 k-node banded homophilous graph.
+
+Each returns the raw ``(adj, attr, labels)``: the benchmark hands copies
+of the same arrays to the program and to the reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import scipy.sparse as sp
+
+__all__ = ["RawGraph", "make_graph", "GENERATORS"]
+
+
+class RawGraph(NamedTuple):
+    adj: sp.csr_matrix      # float32, symmetric 0/1, no self loops
+    attr: sp.csr_matrix     # float32 bag of words
+    labels: np.ndarray      # int32
+
+
+def attributed_sbm(n_nodes: int, n_classes: int, n_features: int,
+                   n_edges: int, *, intra_frac: float,
+                   words_per_node: int, topic_word_frac: float,
+                   seed: int) -> RawGraph:
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, n_classes, size=n_nodes).astype(np.int32)
+    class_nodes = [np.where(labels == c)[0] for c in range(n_classes)]
+    for c in range(n_classes):
+        if len(class_nodes[c]) == 0:
+            labels[rng.randint(n_nodes)] = c
+            class_nodes = [np.where(labels == cc)[0]
+                           for cc in range(n_classes)]
+
+    m = int(n_edges * 1.15)
+    n_intra = int(m * intra_frac)
+    n_inter = m - n_intra
+    src_list, dst_list = [], []
+    sizes = np.array([len(cn) for cn in class_nodes], dtype=np.float64)
+    counts = rng.multinomial(n_intra, sizes / sizes.sum())
+    for c, cnt in enumerate(counts):
+        if cnt == 0 or len(class_nodes[c]) < 2:
+            continue
+        src_list.append(rng.choice(class_nodes[c], size=cnt))
+        dst_list.append(rng.choice(class_nodes[c], size=cnt))
+    src_list.append(rng.randint(0, n_nodes, size=n_inter))
+    dst_list.append(rng.randint(0, n_nodes, size=n_inter))
+    src = np.concatenate(src_list)
+    dst = np.concatenate(dst_list)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+    pairs = np.unique(np.stack([lo, hi], axis=1), axis=0)
+    lo, hi = pairs[:, 0], pairs[:, 1]
+    rows = np.concatenate([lo, hi])
+    cols = np.concatenate([hi, lo])
+    adj = sp.csr_matrix((np.ones(len(rows), dtype=np.float32),
+                         (rows, cols)), shape=(n_nodes, n_nodes))
+    adj.data[:] = 1.0
+
+    block = max(1, n_features // n_classes)
+    word_rows, word_cols = [], []
+    n_topic = int(round(words_per_node * topic_word_frac))
+    n_noise = max(0, words_per_node - n_topic)
+    for c in range(n_classes):
+        nodes = class_nodes[c]
+        if len(nodes) == 0:
+            continue
+        topic_lo = c * block
+        topic_hi = min(n_features, topic_lo + block)
+        word_rows.append(np.repeat(nodes, n_topic))
+        word_cols.append(rng.randint(topic_lo, topic_hi,
+                                     size=n_topic * len(nodes)))
+        if n_noise > 0:
+            word_rows.append(np.repeat(nodes, n_noise))
+            word_cols.append(rng.randint(0, n_features,
+                                         size=n_noise * len(nodes)))
+    word_rows = np.concatenate(word_rows)
+    word_cols = np.concatenate(word_cols)
+    attr = sp.csr_matrix((np.ones(len(word_rows), dtype=np.float32),
+                          (word_rows, word_cols)),
+                         shape=(n_nodes, n_features))
+    attr.data[:] = 1.0
+    return RawGraph(adj, attr, labels)
+
+
+def banded(n_nodes: int, n_classes: int, n_features: int, n_edges: int,
+           *, bandwidth: int, nnz_per_row: int, seed: int) -> RawGraph:
+    n = n_nodes
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, n, n_edges)
+    off = (rng.standard_normal(n_edges) * bandwidth).astype(np.int64)
+    src = np.clip(dst + off, 0, n - 1)
+    a = sp.coo_matrix((np.ones(n_edges, np.float32), (dst, src)),
+                      shape=(n, n)).tocsr()
+    a = a.maximum(a.T)
+    a.setdiag(0)
+    a.eliminate_zeros()
+    a.data[:] = 1.0
+
+    labels = (np.arange(n) * n_classes // n).astype(np.int32)
+    block = n_features // n_classes
+    rows = np.repeat(np.arange(n), nnz_per_row)
+    n_own = int(nnz_per_row * 0.6)
+    own = (labels[:, None] * block
+           + rng.integers(0, block, (n, n_own))).reshape(-1)
+    rand = rng.integers(0, n_features, (n, nnz_per_row - n_own)).reshape(-1)
+    cols = np.concatenate(
+        [own.reshape(n, n_own), rand.reshape(n, nnz_per_row - n_own)],
+        axis=1).reshape(-1)
+    attr = sp.coo_matrix((np.ones(len(rows), np.float32), (rows, cols)),
+                         shape=(n, n_features)).tocsr()
+    attr.sum_duplicates()
+    return RawGraph(a.tocsr(), attr, labels)
+
+
+GENERATORS = {"attributed_sbm": attributed_sbm, "banded": banded}
+
+
+def make_graph(graph_cfg: dict) -> RawGraph:
+    """The graph a configuration's ``graph`` group describes: its
+    ``generator`` and that generator's keyword arguments."""
+    args = dict(graph_cfg)
+    return GENERATORS[args.pop("generator")](**args)

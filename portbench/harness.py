@@ -1,0 +1,541 @@
+"""One run of one cell: set-up, the measured window, the traced segment,
+the per-layer readers and the comparison that decides ``correct``.
+
+The entry a cell drives is the traffic file's ``entry``:
+
+- ``train_model``: one ``train.train_model`` call on one seed;
+- ``train_models``: one ``multiseed.train_models`` call on ``groups``
+  seeds (the paper's protocol: each seed drives its split, its init and
+  its dropout);
+- ``get_predictions``: one client, each request one
+  ``train.get_predictions`` over the whole graph, with the
+  ``weight_sets`` served weight sets (drawn from the seed) in turn.
+
+A training call is one object from set-up to the end: its first
+``warmup`` epochs are set-up (the first three are the ones the reference
+follows), the window runs from the epoch boundary after them to the
+first boundary at or after ``seconds``, and the call is ended there by
+the harness's ``metrics`` writer. Early stopping is set past anything a
+window can hold (the configuration's ``patience``), so every epoch of
+every run does the same work. An epoch boundary is a point where the
+program has synchronised: it reads its epoch's scalars to the host
+before it writes the row.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import gc
+import sys
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from portbench import counts, graphs, reference
+from portbench.spec import Bench, kind_of
+from portbench.tracing import Session, Trace
+
+__all__ = ["run_cell", "Run", "WindowClosed", "BANNED"]
+
+# top-level modules that must not be loaded in a run of the port
+BANNED = ("jax", "jaxlib", "flax", "ppnp_tpu")
+_LEAD = 2  # traced boundaries before the read segment opens
+
+
+class WindowClosed(Exception):
+    """Raised at the boundary that ends the call."""
+
+
+@dataclasses.dataclass
+class Run:
+    """What a per-layer reader reads: the traced segment of ``units``
+    epochs or requests, the cell's kind, its shapes, and the time of one
+    unit over the measured window (profiler off)."""
+    kind: str
+    trace: Trace
+    units: int
+    step_s: float
+    shapes: counts.Shapes
+    propagate_spans: tuple = ("ppnp/propagate", "ppnp/grouped_propagate")
+
+
+class _Window:
+    """The ``metrics`` writer handed to a training call: stamps every
+    epoch boundary, opens the window after ``warmup`` epochs, closes it
+    at the first boundary at or after ``seconds``, then traces
+    ``trace_units`` epochs (after ``_LEAD``) or ends the call."""
+
+    def __init__(self, warmup: int, seconds: float, trace_units: int,
+                 capture: Callable[[int, Dict], None]):
+        self.warmup, self.seconds = warmup, seconds
+        self.trace_units, self.capture = trace_units, capture
+        self.phase = "warmup"
+        self.stamps: List[float] = []
+        self.session: Optional[Session] = None
+        self._left = 0
+
+    def write(self, event: str, **row) -> None:
+        if event != "epoch":
+            return
+        now = time.perf_counter()
+        self.capture(int(row["epoch"]), row)
+        if self.phase == "warmup":
+            if row["epoch"] + 1 >= self.warmup:
+                self.stamps = [now]
+                self.phase = "window"
+        elif self.phase == "window":
+            self.stamps.append(now)
+            if now - self.stamps[0] >= self.seconds:
+                if not self.trace_units:
+                    raise WindowClosed
+                self.session = Session()
+                self.phase, self._left = "lead", _LEAD
+        else:
+            self._left -= 1
+            if self._left:
+                return
+            if self.phase == "lead":
+                self.session.open_window()
+                self.phase, self._left = "traced", self.trace_units
+            else:
+                self.session.close_window()
+                raise WindowClosed
+
+    @property
+    def t0(self) -> float:
+        return self.stamps[0]
+
+
+@contextlib.contextmanager
+def _observe(module, holder: Dict, select: Callable):
+    """Hand the optimizer a training call makes, and a copy of its
+    weights before the first step, to ``holder``: ``module.Adam`` is
+    replaced by a subclass for the call (the arithmetic is Adam's)."""
+    base = module.Adam
+
+    class Observed(base):
+        def __init__(self, params, *args, **kwargs):
+            super().__init__(params, *args, **kwargs)
+            holder["opt"] = self
+            holder["p0"] = [select(p).detach().clone() for p in self.params]
+
+    module.Adam = Observed
+    try:
+        yield
+    finally:
+        module.Adam = base
+
+
+def cell_seeds(seed: int, groups: int):
+    """The cell's seeds, all drawn from ``--seed``: the model's key, the
+    split's seed, ``groups`` distinct sweep seeds, and a generator for
+    the rest (the samples the reference follows)."""
+    rng = np.random.default_rng(np.random.SeedSequence(seed % 2 ** 128))
+    model_seed = int(rng.integers(0, 2 ** 32))
+    split_seed = int(rng.integers(0, 2 ** 31))
+    sweep = [int(s) for s in rng.choice(2 ** 32, size=groups, replace=False)]
+    return model_seed, split_seed, sweep, rng
+
+
+def cell_sample(kind: str, traffic: Dict, rng) -> List[int]:
+    """The models the reference follows: the one model, or a sample of
+    ``sample_seeds`` of a sweep's seeds drawn from the cell's seed."""
+    if kind != "sweep":
+        return [0]
+    groups = int(traffic["groups"])
+    return sorted(rng.choice(groups, size=min(groups,
+                                              traffic["sample_seeds"]),
+                             replace=False).tolist())
+
+
+def _program_inputs(raw: graphs.RawGraph, cfg: Dict, traffic: Dict, dev):
+    """The program's graph, propagator and staged X, built by its own
+    entry points from copies of the raw graph."""
+    from ppnp_tpu_torch.builders import build_propagator
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.data.sparsegraph import SparseGraph
+    from ppnp_tpu_torch.kernels.blocked import build_blocked_csr
+    from ppnp_tpu_torch.ops.normalize import calc_A_hat
+    from ppnp_tpu_torch.ops.propagation import PPRPowerIteration
+    from ppnp_tpu_torch.train import prepare_attr_input
+
+    graph = SparseGraph(adj_matrix=raw.adj.copy(), attr_matrix=raw.attr.copy(),
+                        labels=raw.labels.copy())
+    if cfg["standardize"]:
+        graph = graph.standardize()
+    m = cfg["model"]
+    if traffic["backend"] == "blocked":
+        blocked = build_blocked_csr(
+            calc_A_hat(graph.adj_matrix),
+            rows_per_block=traffic["rows_per_block"],
+            reorder=traffic.get("reorder"), with_adjoint=True, device=dev)
+        prop = PPRPowerIteration(alpha=m["alpha"], niter=m["niter"],
+                                 drop_prob=m["drop_prob"], backend="blocked",
+                                 blocked=blocked)
+    else:
+        prop = build_propagator(RunConfig(
+            backend=traffic["backend"], alpha=m["alpha"], niter=m["niter"],
+            drop_prob=m["drop_prob"]), graph, dev)
+    x = prepare_attr_input(graph, prop, x_format=cfg["x_format"],
+                           hidden=max(m["hidden"]))
+    return graph, prop, x
+
+
+def _train_kwargs(cfg: Dict, split_seed: int, window: _Window) -> Dict:
+    m = cfg["model"]
+    return dict(hidden_units=list(m["hidden"]), drop_prob=m["drop_prob"],
+                learning_rate=m["learning_rate"], reg_lambda=m["reg_lambda"],
+                idx_split_args=dict(cfg["split"], seed=split_seed),
+                stopping_args={"max_epochs": cfg["max_epochs"],
+                               "patience": cfg["patience"]},
+                print_interval=0, metrics=window, x_format=cfg["x_format"])
+
+
+def _drive_training(kind: str, cfg: Dict, traffic: Dict, graph, prop, x,
+                    seeds, seconds: float, trace: bool, sample: List[int]):
+    """Run the one training call; returns (window, observed numbers by
+    model index in ``sample``)."""
+    from ppnp_tpu_torch import multiseed, train
+    model_seed, split_seed, sweep, _ = seeds
+    holder: Dict[str, Any] = {"losses": [], "stop_losses": []}
+    sel = (lambda p: p) if kind == "train" else (lambda p: p[sample])
+
+    def picked(values):
+        return [values] if kind == "train" else [values[g] for g in sample]
+
+    def capture(epoch: int, row: Dict) -> None:
+        if epoch >= 3:
+            return
+        holder["losses"].append(picked(row["train_loss"]))
+        holder["stop_losses"].append(picked(row["stopping_loss"]))
+        opt = holder["opt"]
+        if epoch == 0:
+            holder["grad1"] = [sel(mu).detach() / (1.0 - opt.b1)
+                               for mu in opt.mu]
+        if epoch == 2:
+            holder["p3"] = [sel(p).detach().clone() for p in opt.params]
+
+    warmup = int(traffic["warmup_epochs"])
+    if warmup < 4:
+        raise ValueError("warmup_epochs must cover the three steps that "
+                         "the reference follows")
+    window = _Window(warmup, seconds,
+                     int(traffic["trace_epochs"]) if trace else 0, capture)
+    kw = _train_kwargs(cfg, split_seed, window)
+    module = train if kind == "train" else multiseed
+    with _observe(module, holder, sel):
+        try:
+            if kind == "train":
+                train.train_model(graph, prop, seed=model_seed,
+                                  x_prepared=x, **kw)
+            else:
+                multiseed.train_models(graph, prop, sweep, x_prepared=x,
+                                       **kw)
+        except WindowClosed:
+            pass
+    if window.phase == "warmup" or len(window.stamps) < 2:
+        raise RuntimeError("the training call ended before its window")
+    observed = []
+    for j in range(len(holder["losses"][0])):
+        # to the reference's layout (in, out): a Linear weight is (out,
+        # in), the sweep stacks them transposed
+        leaf = (lambda t: t.t()) if kind == "train" else (lambda t: t[j])
+        observed.append({
+            "losses": [step[j] for step in holder["losses"]],
+            "stop_losses": [step[j] for step in holder["stop_losses"]],
+            "grad1": [leaf(g).cpu() for g in holder["grad1"]],
+            "change": [leaf(p3 - p0).cpu()
+                       for p3, p0 in zip(holder["p3"], holder["p0"])]})
+    holder.clear()
+    return window, observed
+
+
+def serving_weights(n_sets: int, f: int, hid: int, c: int, seed: int,
+                    dev):
+    """The served weight sets, Glorot-uniform, drawn on ``dev`` by a
+    generator seeded with ``--seed``: (n_sets, f, hid), (n_sets, hid, c)
+    in the layout ``x @ w``. More than one set gives the comparison more
+    nodes whose classes lie near a tie, where a lower precision shows."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed % 2 ** 63)
+    w1 = (torch.rand((n_sets, f, hid), generator=gen, device=dev) * 2 - 1) \
+        * float(np.sqrt(6.0 / (f + hid)))
+    w2 = (torch.rand((n_sets, hid, c), generator=gen, device=dev) * 2 - 1) \
+        * float(np.sqrt(6.0 / (hid + c)))
+    return w1, w2
+
+
+def _drive_serving(cfg: Dict, traffic: Dict, graph, prop, x, seed: int,
+                   rng, seconds: float, trace: bool, dev):
+    """One client; returns (latencies s, window start and length, the
+    sampled answers {weight set: (request, predictions)}, one request of
+    each set drawn from the seed, the raw weights, failed, the traced
+    segment or None). Request i is served with weight set i mod
+    ``weight_sets``, each sent when the last has returned."""
+    from ppnp_tpu_torch import train
+    from ppnp_tpu_torch.models.appnp import MLP
+    m = cfg["model"]
+    f, hid = graph.attr_matrix.shape[1], max(m["hidden"])
+    c = int(np.max(graph.labels)) + 1
+    n_sets = int(traffic["weight_sets"])
+    w1, w2 = serving_weights(n_sets, f, hid, c, seed, dev)
+    models = []
+    for k in range(n_sets):
+        model = MLP([f, hid, c], device=dev)
+        with torch.no_grad():
+            model.layers[0].weight.copy_(w1[k].t())
+            model.layers[1].weight.copy_(w2[k].t())
+        models.append(model)
+    sample: Dict[int, tuple] = {}
+    served = [0] * n_sets
+    failed, first_error = 0, None
+    count = 0
+
+    def request():
+        nonlocal failed, first_error, count
+        model = models[count % n_sets]
+        count += 1
+        try:
+            return train.get_predictions(model, x, prop)
+        except Exception as exc:  # a failed request is counted, not fatal
+            failed += 1
+            first_error = first_error or repr(exc)
+            return None
+
+    for _ in range(int(traffic["warmup_requests"])):
+        request()
+    lat: List[float] = []
+    t0 = time.perf_counter()
+    while True:
+        ts = time.perf_counter()
+        preds = request()
+        te = time.perf_counter()
+        lat.append(te - ts if preds is not None else float("inf"))
+        i, k = len(lat) - 1, (count - 1) % n_sets
+        if preds is not None:
+            served[k] += 1
+            if rng.integers(0, served[k]) == 0:
+                sample[k] = (i, preds)
+        if te - t0 >= seconds:
+            break
+    span = te - t0
+    traced = None
+    if trace:
+        session = Session()
+        for _ in range(_LEAD):
+            request()
+        session.open_window()
+        for _ in range(int(traffic["trace_requests"])):
+            request()
+        session.close_window()
+        traced = session.finish()
+    if first_error:
+        print(f"first failed request: {first_error}", file=sys.stderr)
+    return lat, t0, span, sample, (w1.cpu(), w2.cpu()), failed, traced
+
+
+def _shapes(cfg: Dict, graph, prop, x, groups: int) -> counts.Shapes:
+    m = cfg["model"]
+    n, f = graph.attr_matrix.shape
+    sparse = cfg["x_format"] == "sparse"
+    nnz = prop.blocked.nnz if prop.blocked is not None else prop.csr.nnz
+    return counts.Shapes(
+        n=n, nnz=int(nnz), f=f, nnz_x=int(x.csr.nnz) if sparse else 0,
+        hidden=max(m["hidden"]), c=int(np.max(graph.labels)) + 1,
+        niter=m["niter"], x_sparse=sparse, groups=groups)
+
+
+def _relative(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def compare_training(observed, refs) -> Dict[str, float]:
+    """The numbers ``correct`` compares in a training cell: each of the
+    three steps' loss and the stopping-set loss after it (relative gap),
+    the first gradient and the change after three steps (worst leaf; the
+    change over the entries whose first gradient is not near zero)."""
+    loss = stop = grad = change = 0.0
+    for obs, ref in zip(observed, refs):
+        loss = max(loss, _relative(obs["losses"], ref["losses"]))
+        stop = max(stop, _relative(obs["stop_losses"], ref["stop_losses"]))
+        grad = max(grad, max(reference.leaf_gaps(
+            obs["grad1"], ref["grad1"], ref["grad1"])))
+        change = max(change, max(reference.leaf_gaps(
+            obs["change"], [p - q for p, q in zip(ref["params"],
+                                                   ref["params0"])],
+            ref["grad1"], steady_entries=True)))
+    return {"loss": float(loss), "stop_loss": float(stop),
+            "grad": float(grad), "change": float(change)}
+
+
+def serving_gap(logp_ref: torch.Tensor, preds) -> float:
+    """The widest gap by which a served class's log-probability lies
+    below the reference's best, over the nodes."""
+    preds = torch.as_tensor(np.asarray(preds), dtype=torch.int64)
+    best = logp_ref.max(dim=-1).values
+    got = logp_ref.gather(1, preds[:, None].to(logp_ref.device))[:, 0]
+    return float((best - got).max())
+
+
+def training_references(prob, cfg, kind, seeds, sample, *,
+                        precision="float64", fault=None) -> List[Dict]:
+    """The reference's first three steps of each model in ``sample``."""
+    model_seed, split_seed, sweep, _ = seeds
+    out = []
+    for g in sample:
+        s = model_seed if kind == "train" else sweep[g]
+        ss = split_seed if kind == "train" else s & 0x7FFFFFFF
+        out.append(reference.train_steps(
+            prob, cfg["model"], cfg["split"], seed=s, split_seed=ss,
+            precision=precision, fault=fault))
+    return out
+
+
+def reference_problem(raw, cfg, traffic, device):
+    return reference.prepare(
+        raw.adj, raw.attr, raw.labels, standardize=cfg["standardize"],
+        arm=traffic["edge_ids"], x_format=cfg["x_format"],
+        rows_per_block=traffic.get("rows_per_block", 0),
+        reorder=traffic.get("reorder"), device=device)
+
+
+def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
+             trace: bool, *, t_start: float, device=None):
+    """One run; returns (the result line's object, the lines for
+    standard error, which end with the numbers compared). ``t_start`` is
+    the ``perf_counter`` reading at process start."""
+    cell = bench.cell(workload)
+    cfg = bench.config(cell["config"])
+    traffic = bench.traffic(cell["traffic"])
+    limits = bench.limits(workload)
+    kind = kind_of(traffic)
+    dev = torch.device(device or "cuda")
+    groups = int(traffic.get("groups", 1))
+    seeds = cell_seeds(seed, groups)
+    rng = seeds[3]
+    sample = cell_sample(kind, traffic, rng)
+
+    if dev.type == "cuda":
+        from ppnp_tpu_torch.kernels import build
+        build.build_kernels()
+        torch.zeros(1, device=dev)
+    raw = graphs.make_graph(cfg["graph"])
+    graph, prop, x = _program_inputs(raw, cfg, traffic, dev)
+    shapes = _shapes(cfg, graph, prop, x, groups)
+    stderr: List[str] = []
+
+    traced: Optional[Trace] = None
+    if kind in ("train", "sweep"):
+        window, observed = _drive_training(kind, cfg, traffic, graph, prop,
+                                           x, seeds, seconds, trace, sample)
+        if window.session is not None:
+            traced = window.session.finish()
+        t0 = window.t0
+        span = window.stamps[-1] - window.stamps[0]
+        epochs = len(window.stamps) - 1
+        per_epoch = np.diff(window.stamps) * 1e3
+        unit_s = span / epochs
+        e2e = {"epoch_ms": unit_s * 1e3,
+               "seed_epochs_per_s": groups * epochs / span}
+        attempted = epochs * groups
+        failed = 0
+        chunks = [per_epoch[i:i + 25].mean() for i in
+                  range(0, len(per_epoch) - 24, 25)]
+        stderr.append(
+            f"epochs {epochs} in {span:.4f} s; ms an epoch: mean "
+            f"{unit_s * 1e3:.4f}, median {np.median(per_epoch):.4f}, "
+            f"p5 {np.percentile(per_epoch, 5):.4f}, p95 "
+            f"{np.percentile(per_epoch, 95):.4f}; median of 25-epoch "
+            f"chunks {np.median(chunks) if chunks else float('nan'):.4f}")
+    else:
+        lat, t0, span, answers, weights, failed, traced = _drive_serving(
+            cfg, traffic, graph, prop, x, seed, rng, seconds, trace, dev)
+        lat_ms = np.array(lat) * 1e3
+        finite = lat_ms[np.isfinite(lat_ms)]
+        unit_s = span / len(lat)
+        e2e = {"request_p95_ms": float(np.percentile(lat_ms, 95))}
+        attempted = len(lat)
+        stderr.append(
+            f"requests {len(lat)} (failed {failed}) in {span:.4f} s; "
+            f"ms: p50 {np.percentile(lat_ms, 50):.4f}, p95 "
+            f"{np.percentile(lat_ms, 95):.4f}, p99 "
+            f"{np.percentile(lat_ms, 99):.4f}, mean "
+            f"{finite.mean() if len(finite) else float('nan'):.4f}")
+    e2e["setup_s"] = t0 - t_start
+
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else 0)
+    result: Dict[str, Any] = {"correct": False, "attempted": attempted,
+                              "failed": failed}
+    if trace:
+        run = Run(kind=kind, trace=traced, units=int(
+            traffic["trace_epochs" if kind != "serve" else "trace_requests"]),
+            step_s=unit_s, shapes=shapes)
+        metrics = {}
+        for m in bench.per_layer(workload):
+            value = bench.reader(m["name"])(run)
+            if value is not None:
+                metrics[m["name"]] = {"value": float(value),
+                                      "unit": m["unit"]}
+    else:
+        metrics = {m["name"]: {"value": float(e2e[m["name"]]),
+                               "unit": m["unit"]}
+                   for m in bench.end_to_end(workload)}
+    result["metrics"] = metrics
+    result["device"] = {
+        "platform": "gpu" if dev.type == "cuda" else dev.type,
+        "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                 else "cpu"),
+        "count": 1, "memory_peak_bytes": int(peak)}
+    if trace:
+        stderr.append("card: " + _power_limit())
+        result["device"]["busy_s"] = traced.busy_s()
+        result["device"]["window_s"] = traced.window_s
+        result["breakdown"] = traced.breakdown()
+
+    # the program's state goes before the reference runs
+    del graph, prop, x
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    prob = reference_problem(raw, cfg, traffic, dev)
+    if kind == "serve":
+        checks = {"gap": max((serving_gap(reference.eval_logp(
+            prob, weights[0][k], weights[1][k], alpha=cfg["model"]["alpha"],
+            niter=cfg["model"]["niter"]), preds)
+            for k, (_, preds) in answers.items()), default=np.inf)}
+    else:
+        refs = training_references(prob, cfg, kind, seeds, sample)
+        checks = compare_training(observed, refs)
+    stderr.append(f"reference {time.perf_counter() - t_ref:.3f} s")
+    result["correct"] = bool(
+        failed == 0 and all(np.isfinite(v) and v <= limits[k]
+                            for k, v in checks.items()))
+    result["checks"] = {k: {"value": v, "limit": limits[k]}
+                        for k, v in checks.items()}
+    stderr += [f"check {k}: {v!r} (limit {limits[k]!r})"
+               for k, v in checks.items()]
+    return result, stderr
+
+
+def _power_limit() -> str:
+    """The card's name and power limit, which the roofline and mfu
+    shares are to be read beside (a card below 700 W runs slower)."""
+    import subprocess
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        return f"power limit not read ({exc!r})"
+    return out.stdout.strip() or out.stderr.strip()
+
+
+def banned_modules() -> List[str]:
+    """The banned top-level modules loaded in this process."""
+    return sorted({name.split(".")[0] for name in sys.modules}
+                  & set(BANNED))

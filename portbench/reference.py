@@ -1,0 +1,517 @@
+"""The plain reference: APPNP training steps and the eval forward.
+
+Plain PyTorch and NumPy, computed in float64 (``precision="float64"``)
+or, for the control, in TF32: every product's operands rounded to TF32's
+10-bit mantissa and summed in float32 (``precision="tf32"``), forward and
+backward. It imports nothing of ``ppnp_tpu_torch``: from the raw graph
+that the benchmark hands it, it works out again everything the program
+derives, namely the standardized graph, Â, X's L1 normalization, the
+splits, the initial weights, the reverse Cuthill-McKee order and the
+blocked plan, and every dropout mask from the port's key schedule.
+
+The key schedule and the masks are frozen copies of the port's
+arithmetic (``ops/hashrng.py``, ``ops/prng.py``, ``ops/dropout.py``,
+``kernels/masks.py``, which draw ``jax.random``'s bits): Threefry-2x32
+with 20 rounds; ``PRNGKey(s) = (0, s mod 2³²)``; ``split`` and
+``fold_in`` as Threefry of counters ``(0, i)``; dense dropout keeps
+byte ``j`` of 32-bit word ``w`` of ``bits(key, rows × ceil(last/4))`` as
+element ``4w + j`` when it is below ``keep·256``; edge dropout keeps
+an edge when the first Threefry word of ``(key; id >> 32, id mod 2³²)``
+is below ``keep·2³²``, with the edge's id in the arm's coordinates.
+
+One training step, as ``train.train_model`` runs it (and
+``multiseed.train_models`` for each seed): ``key = fold_in(key_epochs,
+e)``; ``key_mlp, key_prop = split(key)``; dropout before each of the
+two layers, ReLU between them; K steps ``H ← (1-α)·Â_drop·H + α·H⁰``
+with the mask of step k from ``split(key_prop, K)[k]``; NLL on the
+training nodes plus ``λ/2·‖W₁‖²``; one Adam step with optax's
+arithmetic; then the stopping-set eval: the eval forward (no dropout)
+with the updated weights, NLL on the stopping nodes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+import torch.nn.functional as F
+
+__all__ = ["Problem", "prepare", "train_steps", "eval_logp",
+           "glorot_init", "prng_key", "split", "fold_in"]
+
+MASK32 = 0xFFFFFFFF
+_ROT_A = (13, 15, 26, 6)
+_ROT_B = (17, 29, 16, 24)
+_PARITY = 0x1BD11BDA
+_KNOWN_UNKNOWN_SEED = 1707092819
+_EDGE_CHUNK = 1 << 22   # entries per gather in the sparse product
+
+
+# ---------------------------------------------------------------- keys --
+
+def _rotl(x, r):
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def threefry2x32(k0, k1, c0, c1):
+    """Threefry-2x32 on numpy uint32 or torch int64 values in [0, 2³²)."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (c0 + ks[0]) & MASK32
+    x1 = (c1 + ks[1]) & MASK32
+    for i, rots in enumerate((_ROT_A, _ROT_B, _ROT_A, _ROT_B, _ROT_A)):
+        for r in rots:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return x0, x1
+
+
+def _u32(x) -> np.ndarray:
+    return np.atleast_1d(np.asarray(x, dtype=np.uint32))
+
+
+def prng_key(seed: int) -> np.ndarray:
+    return np.array([0, int(seed) & MASK32], dtype=np.uint32)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    key = _u32(key)
+    i = np.arange(num, dtype=np.uint32)
+    out0, out1 = threefry2x32(key[0:1], key[1:2], np.zeros_like(i), i)
+    return np.stack([out0, out1], axis=-1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    key = _u32(key)
+    out0, out1 = threefry2x32(key[0:1], key[1:2], _u32(0),
+                              _u32(int(data) & MASK32))
+    return np.concatenate([out0, out1])
+
+
+def _bits(key, idx: torch.Tensor) -> torch.Tensor:
+    """``jax.random.bits`` words at flat indices ``idx`` (int64)."""
+    x0, x1 = threefry2x32(int(key[0]), int(key[1]), idx >> 32, idx & MASK32)
+    return x0 ^ x1
+
+
+def _first_word(k0, k1, ids: torch.Tensor) -> torch.Tensor:
+    """The first Threefry word at ``ids`` under key words ``(k0, k1)``:
+    Python ints, or int64 tensors of one key per id."""
+    return threefry2x32(k0, k1, ids >> 32, ids & MASK32)[0]
+
+
+def glorot_init(key, fan_in: int, fan_out: int, device) -> torch.Tensor:
+    """``glorot_uniform()(key, (fan_in, fan_out))`` in float32."""
+    b = _bits(key, torch.arange(fan_in * fan_out, device=device))
+    one = (b >> 9) | 0x3F800000
+    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp_min(floats * 2.0 - 1.0, -1.0)
+    variance = np.float32(1.0 / ((fan_in + fan_out) / 2))
+    scale = float(np.sqrt(np.float32(3) * variance))
+    return (u * scale).reshape(fan_in, fan_out)
+
+
+def _edge_keep(key, ids: torch.Tensor, keep: float) -> torch.Tensor:
+    """Edge dropout by id under one key, or under ``key`` (K, 2) indexed
+    by ``which`` when ``key`` is a pair (keys, which)."""
+    thresh = min(int(keep * 2 ** 32), 2 ** 32 - 1)
+    if isinstance(key, tuple):
+        keys, which = key
+        kt = torch.as_tensor(keys.astype(np.int64), device=ids.device)
+        k0, k1 = kt[which, 0], kt[which, 1]
+    else:
+        k0, k1 = int(key[0]), int(key[1])
+    return _first_word(k0, k1, ids) < thresh
+
+
+def _dense_keep(key, rows: torch.Tensor, cols: torch.Tensor, last: int,
+                keep_q: float) -> torch.Tensor:
+    """The dense dropout mask of a (·, last) array at (rows, cols)."""
+    words = rows * -(-last // 4) + cols // 4
+    byte = (_bits(key, words) >> (8 * (cols % 4))) & 0xFF
+    return byte < int(keep_q * 256)
+
+
+def _quantized_keep(drop: float) -> float:
+    return round((1.0 - drop) * 256.0) / 256.0
+
+
+# ----------------------------------------------------------- arithmetic --
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 values to TF32 (10-bit mantissa, nearest even)."""
+    b = x.contiguous().view(torch.int32)
+    b = (b + (0xFFF + ((b >> 13) & 1))) & ~0x1FFF
+    return b.view(torch.float32)
+
+
+class _Round(torch.autograd.Function):
+    """TF32 rounding of a value forward and of its gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _tf32(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tf32(g)
+
+
+class _SpMM(torch.autograd.Function):
+    """``out[r] += val·h[c]`` over the entries (rows, cols, val) of an
+    (n_out × h.shape[0]) matrix; differentiable in ``h`` only."""
+
+    @staticmethod
+    def forward(ctx, h, rows, cols, val, n_out):
+        ctx.save_for_backward(rows, cols, val)
+        ctx.n_in = h.shape[0]
+        return _spmm(rows, cols, val, h, n_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, cols, val = ctx.saved_tensors
+        return _spmm(cols, rows, val, g, ctx.n_in), None, None, None, None
+
+
+def _spmm(rows, cols, val, h, n_out):
+    out = h.new_zeros((n_out, h.shape[1]))
+    for lo in range(0, rows.shape[0], _EDGE_CHUNK):
+        sl = slice(lo, lo + _EDGE_CHUNK)
+        out.index_add_(0, rows[sl], h.index_select(0, cols[sl])
+                       * val[sl, None])
+    return out
+
+
+@dataclasses.dataclass
+class _Math:
+    """float64, or TF32 operands summed in float32."""
+    precision: str
+
+    @property
+    def dtype(self):
+        return torch.float64 if self.precision == "float64" else torch.float32
+
+    def r(self, x):
+        x = x.to(self.dtype)
+        return x if self.precision == "float64" else _Round.apply(x)
+
+    def mm(self, a, b):
+        return self.r(self.r(a) @ self.r(b))
+
+    def spmm(self, rows, cols, val, h, n_out):
+        return self.r(_SpMM.apply(self.r(h), rows, cols, self.r(val), n_out))
+
+
+# ------------------------------------------------------------- problem --
+
+@dataclasses.dataclass
+class Problem:
+    """What the reference works out from the raw graph, on ``device``:
+    Â's entries in original coordinates with each entry's id and block
+    in the arm's plan, X's entries (L1-normalized), the labels."""
+    n: int
+    f: int
+    n_classes: int
+    labels: np.ndarray
+    a_rows: torch.Tensor
+    a_cols: torch.Tensor
+    a_val: torch.Tensor        # float64
+    a_ids: Optional[torch.Tensor]
+    a_block: Optional[torch.Tensor]
+    x_rows: torch.Tensor
+    x_cols: torch.Tensor
+    x_val: torch.Tensor        # float64
+    x_ids: torch.Tensor        # id-keyed masks of a sparse X
+    x_format: str
+    device: torch.device
+
+
+def _standardize(adj, attr, labels):
+    adj = sp.csr_matrix(adj, dtype=np.float64, copy=True)
+    adj.data[:] = 1.0
+    adj = adj.maximum(adj.T).tocsr()
+    adj.data[:] = 1.0
+    adj = adj.tolil()
+    adj.setdiag(0)
+    adj = adj.tocsr()
+    adj.eliminate_zeros()
+    _, comp = sp.csgraph.connected_components(adj)
+    sizes = np.bincount(comp)
+    keep = np.where(comp == np.argmax(sizes))[0]
+    keep = np.sort(keep)
+    return adj[keep][:, keep], attr[keep], labels[keep]
+
+
+def _a_hat(adj) -> sp.csr_matrix:
+    a = sp.csr_matrix(adj, dtype=np.float64) + sp.eye(adj.shape[0],
+                                                       format="csr")
+    d = 1.0 / np.sqrt(np.asarray(a.sum(axis=1)).ravel())
+    return (sp.diags(d) @ a @ sp.diags(d)).tocsr()
+
+
+def _rcm(a: sp.csr_matrix) -> np.ndarray:
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    return np.asarray(reverse_cuthill_mckee(a.tocsr(), symmetric_mode=True))
+
+
+def _blocked_plan(pr, pc, n, r):
+    """Each entry's block and id in the blocked plan (row blocks of r
+    rows; one 8-aligned window of H per block, clamped to end in the
+    padded rows; ids over span max(r, hw) within a block)."""
+    n_blocks = max(1, -(-n // r))
+    n_pad = r * n_blocks
+    blk = pr // r
+    lo = np.zeros(n_blocks, np.int64)
+    span = np.full(n_blocks, 8, np.int64)
+    cmin = np.full(n_blocks, np.iinfo(np.int64).max)
+    cmax = np.full(n_blocks, -1, np.int64)
+    np.minimum.at(cmin, blk, pc)
+    np.maximum.at(cmax, blk, pc)
+    has = cmax >= 0
+    lo[has] = cmin[has] >> 3 << 3
+    span[has] = cmax[has] + 1 - lo[has]
+    hw = min(-(-int(span.max()) // 8) * 8, n_pad)
+    col_lo = np.minimum(lo, n_pad - hw)
+    ids = (pr - blk * r) * max(r, hw) + (pc - col_lo[blk])
+    return blk, ids
+
+
+def prepare(adj, attr, labels, *, standardize: bool, arm: str,
+            x_format: str, rows_per_block: int = 0,
+            reorder: Optional[str] = None, device="cpu") -> Problem:
+    """The reference's own derivation of every input of a run.
+
+    ``arm`` fixes the coordinates of the edge ids: ``"rcm"`` (the CSR
+    arms, under the reverse Cuthill-McKee order) or ``"blocked"`` (row
+    blocks of ``rows_per_block``, after ``reorder``). The xla arm keys
+    its masks by edge-list slot instead, which this reference does not
+    derive."""
+    if arm not in ("rcm", "blocked"):
+        raise ValueError(f"edge ids in coordinates {arm!r}: the reference "
+                         "derives 'rcm' (pallas, fused) and 'blocked'")
+    device = torch.device(device)
+    labels = np.asarray(labels)
+    if standardize:
+        adj, attr, labels = _standardize(adj, attr, labels)
+    a_hat = _a_hat(adj)
+    a = a_hat.tocoo()
+    rows, cols = a.row.astype(np.int64), a.col.astype(np.int64)
+    n = a.shape[0]
+    ids = blk = None
+    if arm == "rcm" or (arm == "blocked" and reorder == "rcm"):
+        perm = _rcm(a_hat)
+        iperm = np.empty_like(perm)
+        iperm[perm] = np.arange(n)
+        pr, pc = iperm[rows], iperm[cols]
+    else:
+        pr, pc = rows, cols
+    if arm == "rcm":
+        ids = pr * n + pc
+    elif arm == "blocked":
+        blk, ids = _blocked_plan(pr, pc, n, rows_per_block)
+
+    x = sp.csr_matrix(attr, dtype=np.float64)
+    sums = np.asarray(x.sum(axis=1)).ravel()
+    x = (sp.diags(np.where(sums > 0, 1.0 / np.maximum(sums, 1e-12), 0.0))
+         @ x).tocoo()
+    xr, xc = x.row.astype(np.int64), x.col.astype(np.int64)
+
+    def dev(v, dtype=torch.int64):
+        return None if v is None else torch.as_tensor(
+            np.ascontiguousarray(v)).to(device=device, dtype=dtype)
+
+    return Problem(
+        n=n, f=x.shape[1], n_classes=int(labels.max()) + 1, labels=labels,
+        a_rows=dev(rows), a_cols=dev(cols), a_val=dev(a.data, torch.float64),
+        a_ids=dev(ids), a_block=dev(blk), x_rows=dev(xr), x_cols=dev(xc),
+        x_val=dev(x.data, torch.float64),
+        x_ids=dev(xr * max(n, x.shape[1]) + xc), x_format=x_format,
+        device=device)
+
+
+def gen_splits(labels: np.ndarray, split: Dict[str, int], seed: int):
+    """(train, stopping) node indices of the protocol: a fixed known
+    pool of ``nknown`` nodes, then per class ``ntrain_per_class`` train
+    nodes and ``nstopping`` stopping nodes, drawn with ``seed``."""
+    idx = np.arange(len(labels))
+    known = np.random.RandomState(_KNOWN_UNKNOWN_SEED).choice(
+        idx, min(split["nknown"], len(labels)), replace=False)
+    rnd = np.random.RandomState(seed)
+    known_labels = labels[known]
+    train = np.concatenate([
+        rnd.choice(known[known_labels == c],
+                   min(split["ntrain_per_class"],
+                       int((known_labels == c).sum())), replace=False)
+        for c in range(int(labels.max()) + 1)])
+    stopping = rnd.choice(known[~np.isin(known, train)], split["nstopping"],
+                          replace=False)
+    return train, stopping
+
+
+# ------------------------------------------------------------- forward --
+
+def _propagate(p: Problem, m: _Math, h0, alpha, niter, key_prop,
+               drop: float):
+    """K power-iteration steps; with ``key_prop`` each step's edges are
+    dropped by id (block b of a blocked plan keyed by ``fold_in``)."""
+    keys = split(key_prop, niter) if key_prop is not None else None
+    keep = 1.0 - drop
+    val = (1.0 - alpha) * p.a_val
+    h = h0
+    for k in range(niter):
+        w = val
+        if keys is not None:
+            if p.a_block is None:
+                kept = _edge_keep(keys[k], p.a_ids, keep)
+            else:
+                n_blocks = int(p.a_block.max()) + 1
+                block_keys = np.stack([fold_in(keys[k], b)
+                                       for b in range(n_blocks)])
+                kept = _edge_keep((block_keys, p.a_block), p.a_ids, keep)
+            w = torch.where(kept, (1.0 - alpha) * (p.a_val / keep),
+                            torch.zeros_like(val))
+        h = m.spmm(p.a_rows, p.a_cols, w, h, p.n) + m.r(alpha * h0)
+    return h
+
+
+def _local_logits(p: Problem, m: _Math, w1, w2, key_mlp, drop: float):
+    x_val = p.x_val
+    h_keep = None
+    if key_mlp is not None:
+        k1, k2 = split(key_mlp, 2)
+        if p.x_format == "sparse":
+            kept = _edge_keep(k1, p.x_ids, 1.0 - drop)
+            x_val = torch.where(kept, x_val / (1.0 - drop),
+                                torch.zeros_like(x_val))
+        else:
+            keep_q = _quantized_keep(drop)
+            kept = _dense_keep(k1, p.x_rows, p.x_cols, p.f, keep_q)
+            x_val = torch.where(kept, x_val / keep_q, torch.zeros_like(x_val))
+        hid = w1.shape[1]
+        r = torch.arange(p.n, device=p.device)[:, None].expand(p.n, hid)
+        c = torch.arange(hid, device=p.device)[None, :].expand(p.n, hid)
+        keep_q = _quantized_keep(drop)
+        h_keep = (_dense_keep(k2, r.reshape(-1), c.reshape(-1), hid, keep_q)
+                  .reshape(p.n, hid), keep_q)
+    h = F.relu(m.spmm(p.x_rows, p.x_cols, x_val, w1, p.n))
+    if h_keep is not None:
+        mask, keep_q = h_keep
+        h = torch.where(mask, h / keep_q, torch.zeros_like(h))
+    return m.mm(h, w2)
+
+
+def eval_logp(p: Problem, w1, w2, *, alpha: float, niter: int,
+              precision: str = "float64") -> torch.Tensor:
+    """Log-probabilities of every node, eval mode (no dropout)."""
+    m = _Math(precision)
+    with torch.no_grad():
+        h0 = _local_logits(p, m, m.r(w1.to(p.device)), m.r(w2.to(p.device)),
+                           None, 0.0)
+        return F.log_softmax(_propagate(p, m, h0, alpha, niter, None, 0.0),
+                             dim=-1).to(torch.float64)
+
+
+def train_steps(p: Problem, model: Dict, split_args: Dict[str, int], *,
+                seed: int, split_seed: int, n_steps: int = 3,
+                precision: str = "float64", fault: Optional[str] = None
+                ) -> Dict[str, List]:
+    """The first ``n_steps`` training steps of one seed.
+
+    Returns ``losses`` (one per step, before its update),
+    ``stop_losses`` (the stopping set's after each update), ``grad1``
+    (the first step's gradient per weight), ``params0`` and ``params``
+    (the weights before the first step and after the last). ``fault`` plants
+    one for the limits' upper readings: ``"half_batch"`` takes the mean
+    over half of the training nodes."""
+    m = _Math(precision)
+    hidden = list(model["hidden"])
+    alpha, niter = float(model["alpha"]), int(model["niter"])
+    drop, lam, lr = (float(model["drop_prob"]), float(model["reg_lambda"]),
+                     float(model["learning_rate"]))
+    train, stopping = gen_splits(p.labels, split_args, split_seed)
+    sidx = torch.as_tensor(stopping, device=p.device)
+    y_stop = torch.as_tensor(p.labels[stopping].astype(np.int64),
+                             device=p.device)
+    if fault == "half_batch":
+        train = train[: len(train) // 2]
+    idx = torch.as_tensor(train, device=p.device)
+    y = torch.as_tensor(p.labels[train].astype(np.int64), device=p.device)
+    key_init, key_epochs = split(prng_key(seed))
+    dims = [p.f, *hidden, p.n_classes]
+    init_keys = split(key_init, len(dims) - 1)
+    params = [glorot_init(k, a, b, p.device).to(m.dtype).requires_grad_()
+              for k, a, b in zip(init_keys, dims[:-1], dims[1:])]
+    if len(params) != 2:
+        raise ValueError("the reference runs the two-layer MLP")
+    params0 = [q.detach().clone() for q in params]
+    mu = [torch.zeros_like(q) for q in params]
+    nu = [torch.zeros_like(q) for q in params]
+    losses, stop_losses, grad1 = [], [], None
+    for e in range(n_steps):
+        key_mlp, key_prop = split(fold_in(key_epochs, e))
+        h0 = _local_logits(p, m, params[0], params[1], key_mlp, drop)
+        z = _propagate(p, m, h0, alpha, niter, key_prop, drop)
+        logp = F.log_softmax(z.index_select(0, idx), dim=-1)
+        nll = -logp.gather(1, y[:, None]).sum() / len(train)
+        loss = nll + (lam / 2.0) * torch.sum(params[0] ** 2)
+        grads = torch.autograd.grad(loss, params)
+        losses.append(float(loss.detach()))
+        if e == 0:
+            grad1 = [g.detach().clone() for g in grads]
+        with torch.no_grad():
+            c1, c2 = _bias_correction(0.9, e + 1), _bias_correction(0.999,
+                                                                  e + 1)
+            for q, g, mu_q, nu_q in zip(params, grads, mu, nu):
+                mu_q.mul_(0.9).add_(0.1 * g)
+                nu_q.mul_(0.999).add_(0.001 * g * g)
+                q.add_(-lr * (mu_q / c1) / (torch.sqrt(nu_q / c2) + 1e-8))
+        logp = eval_logp(p, params[0].detach(), params[1].detach(),
+                         alpha=alpha, niter=niter, precision=precision)
+        stop_losses.append(float(-logp[sidx].gather(
+            1, y_stop[:, None]).mean()))
+    return {"losses": losses, "stop_losses": stop_losses, "grad1": grad1,
+            "params0": params0, "params": [q.detach() for q in params]}
+
+
+def _bias_correction(b: float, t: int) -> float:
+    """Adam's ``1 - b^t`` as optax computes it for float32 weights, with
+    ``b`` a float32: ``1 - float32(0.999)`` is 1.3e-5 away from 0.001,
+    which would otherwise read as a gap in every step's change."""
+    return float(np.float32(1) - np.float32(b) ** np.float32(t))
+
+
+def leaf_gaps(program: Sequence[torch.Tensor],
+              reference: Sequence[torch.Tensor],
+              ref_grads: Sequence[torch.Tensor], *,
+              steady_entries: bool = False) -> List[float]:
+    """Per leaf, ``|‖program‖ − ‖reference‖|`` over the larger of the
+    reference leaf's norm and the median leaf's. Leaves whose reference
+    gradient is under a thousandth of the median leaf's are left out:
+    rounding alone moves them. With ``steady_entries`` the norms also
+    leave out each leaf's entries whose reference gradient is under a
+    thousandth of the leaf's median entry's: Adam steps such a weight by
+    ``g / (|g| + eps)``, which f32 rounding of a near-zero ``g`` moves by
+    up to its whole size."""
+    ref_n = np.array([float(torch.linalg.vector_norm(r.double()))
+                      for r in reference])
+    grad_n = np.array([float(torch.linalg.vector_norm(g.double()))
+                       for g in ref_grads])
+    med, gmed = float(np.median(ref_n)), float(np.median(grad_n))
+    out = []
+    for prog, ref, g, rn, gn in zip(program, reference, ref_grads, ref_n,
+                                    grad_n):
+        if gn < 1e-3 * gmed:
+            continue
+        pn = float(torch.linalg.vector_norm(prog.double()))
+        if steady_entries:
+            g = g.abs().to(prog.device)
+            keep = g >= 1e-3 * g.median()
+            pn = float(torch.linalg.vector_norm(prog.double()[keep]))
+            rn = float(torch.linalg.vector_norm(
+                ref.double().to(prog.device)[keep]))
+        out.append(abs(pn - rn) / max(rn, med))
+    return out
