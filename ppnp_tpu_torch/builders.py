@@ -40,6 +40,7 @@ from ppnp_tpu_torch.parallel.mesh import (initialize_distributed,
 from ppnp_tpu_torch.parallel.partition import (build_sharded_csr,
                                                build_sharded_graph)
 from ppnp_tpu_torch.parallel.sharded import RowSharded, ShardedPowerIteration
+from ppnp_tpu_torch.profiling import phase
 
 logger = logging.getLogger(__name__)
 
@@ -62,12 +63,14 @@ def resolve_alpha(cfg: RunConfig) -> float:
     return spec.alpha if spec is not None else 0.1
 
 
+@phase("ppnp/setup/propagator")
 def build_propagator(cfg: RunConfig, graph: SparseGraph, device=None
                      ) -> Union[PPRPowerIteration, PPRExact, RowSharded]:
     """The propagation operator named by the config, on ``device``
     (default cuda; raises when CUDA is absent). ``sharded`` starts the
     process group if it is not up (``parallel/mesh.py``) and builds this
-    rank's part of the plan."""
+    rank's part of the plan. Timed as the ``ppnp/setup/propagator`` phase
+    (``profiling.phase``)."""
     dev = resolve_device(device)
     if cfg.propagation == "exact":
         a_hat = calc_A_hat(graph.adj_matrix)

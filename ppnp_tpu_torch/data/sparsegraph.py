@@ -150,13 +150,17 @@ class SparseGraph:
 
         Reference: ppnp/data/sparsegraph.py ~L200 ``standardize`` and
         SURVEY.md §3.5. The composition order matters: LCC runs last so
-        the kept component is computed on the cleaned graph.
+        the kept component is computed on the cleaned graph. Timed as the
+        ``ppnp/setup/standardize`` phase (``profiling.phase``).
         """
-        self.to_unweighted()
-        self.to_undirected()
-        self.remove_self_loops()
-        keep = largest_connected_components(self, n_components=1)
-        return self._subgraph(keep)
+        # imported here: the data layer imports numpy and scipy alone
+        from ppnp_tpu_torch.profiling import phase
+        with phase("ppnp/setup/standardize"):
+            self.to_unweighted()
+            self.to_undirected()
+            self.remove_self_loops()
+            keep = largest_connected_components(self, n_components=1)
+            return self._subgraph(keep)
 
     def largest_connected_components(self, n_components: int = 1
                                      ) -> "SparseGraph":

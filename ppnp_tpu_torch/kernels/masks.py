@@ -17,12 +17,14 @@ same Threefry in int64 torch ops (``ops/hashrng.py``).
   (``word_offset``; 0 but for a row slice of a row-sharded array).
 
 A wrapper takes the plain version only for tensors on the CPU; on a CUDA
-tensor it launches its kernel or raises. Keys are host arrays
+tensor it launches its kernel or raises. Each call of ``edge_masks`` or
+``dropout_masks`` is one ``ppnp/masks`` span of a trace. Keys are host arrays
 (``ops/prng.py``): a launch takes them as arguments.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +33,7 @@ import torch
 from ppnp_tpu_torch.kernels import build
 from ppnp_tpu_torch.ops.hashrng import MASK32, threefry2x32, uniform_bits
 from ppnp_tpu_torch.ops.sparse import CsrMatrix
+from ppnp_tpu_torch.profiling import annotate
 
 __all__ = ["edge_threshold", "edge_masks", "edge_masks_plain",
            "dropout_mask", "dropout_mask_plain", "dropout_masks",
@@ -38,6 +41,15 @@ __all__ = ["edge_threshold", "edge_masks", "edge_masks_plain",
 
 MAX_KEYS_PER_LAUNCH = 256  # csrc/masks.cu kMaxKeys
 _WORD_PLANES = 32          # csrc/masks.cu kWordPlanes: keep bits per word
+
+
+def _masks_span(fn):
+    """``fn``, each call one ``ppnp/masks`` span of a trace."""
+    @functools.wraps(fn)
+    def spanned(*args, **kwargs):
+        with annotate("ppnp/masks"):
+            return fn(*args, **kwargs)
+    return spanned
 
 
 def edge_threshold(keep: float) -> int:
@@ -86,6 +98,7 @@ def _check(what: str, t: Optional[torch.Tensor], dtype: torch.dtype,
                          f"[{n}] tensor on {dev}")
 
 
+@_masks_span
 def edge_masks(keys, a: CsrMatrix, a_t: Optional[CsrMatrix] = None, *,
                keep: float, scale: float = 1.0
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -190,6 +203,7 @@ def dropout_mask_plain(key, shape: Sequence[int], thresh: int,
     return dropout_masks_plain([key], shape, thresh, device)[0]
 
 
+@_masks_span
 def dropout_masks(keys, shape: Sequence[int], thresh: int,
                   device: torch.device, word_offset: int = 0
                   ) -> torch.Tensor:

@@ -61,7 +61,7 @@ from ppnp_tpu_torch.ops.propagation import (PPRPowerIteration,
                                             propagate_grouped)
 from ppnp_tpu_torch.ops.sparse_input import SparseInput
 from ppnp_tpu_torch.optim import Adam
-from ppnp_tpu_torch.profiling import annotate
+from ppnp_tpu_torch.profiling import annotate, phase
 from ppnp_tpu_torch.train import (_check_prepared_input,
                                   default_idx_split_args,
                                   default_stopping_args, prepare_attr_input)
@@ -201,7 +201,10 @@ def train_models(
     Supported propagators: ``PPRPowerIteration`` with backend ``pallas``
     or ``xla``. ``metrics`` receives one ``epoch`` row per epoch whose
     ``train_loss``, ``stopping_accuracy`` and ``stopping_loss`` are lists
-    in seed order, with ``running`` marking the seeds not yet stopped.
+    in seed order, with ``running`` marking the seeds not yet stopped,
+    written after the epoch's ``ppnp/epoch`` span (``profiling``). The
+    splits, the G inits and their copy to the device are the
+    ``ppnp/setup/seeds`` phase.
     """
     if not (isinstance(propagator, PPRPowerIteration)
             and propagator.backend in ("pallas", "xla")):
@@ -218,20 +221,6 @@ def train_models(
     stop_args.update(stopping_args or {})
     max_epochs = int(stop_args.pop("max_epochs"))
 
-    labels_np = np.asarray(graph.labels)
-    splits = [preprocessing.gen_splits(
-        labels_np, dict(idx_split_args, seed=int(s) & 0x7FFFFFFF), test)
-        for s in seeds]
-    dev = propagator.device
-
-    def on_dev(a):
-        return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
-
-    idx_train_g = on_dev(np.stack([s[0] for s in splits]))
-    idx_stop_g = on_dev(np.stack([s[1] for s in splits]))
-    y_train_g = on_dev(np.stack([labels_np[s[0]] for s in splits]))
-    y_stop_g = on_dev(np.stack([labels_np[s[1]] for s in splits]))
-
     if x_prepared is not None:
         _check_prepared_input(x_prepared, graph, propagator,
                               x_format=x_format, x_dtype=x_dtype)
@@ -241,17 +230,32 @@ def train_models(
                                x_dtype=x_dtype,
                                hidden=max(hidden_units, default=64))
 
+    labels_np = np.asarray(graph.labels)
     n_classes = int(labels_np.max()) + 1
-    key_epochs_g, models = [], []
-    for s in seeds:
-        k_init, k_epochs = prng.split(prng.PRNGKey(int(s)))
-        models.append(init_mlp_params(x.shape[1], list(hidden_units),
-                                      n_classes, key=k_init, device="cpu"))
-        key_epochs_g.append(k_epochs)
-    key_epochs_g = np.stack(key_epochs_g)                  # (G, 2)
-    params_g = [torch.stack([m.layers[i].weight.t() for m in models])
-                .to(dev).requires_grad_()
-                for i in range(len(models[0].layers))]    # (G, d_in, d_out)
+    dev = propagator.device
+
+    def on_dev(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+
+    with phase("ppnp/setup/seeds"):
+        splits = [preprocessing.gen_splits(
+            labels_np, dict(idx_split_args, seed=int(s) & 0x7FFFFFFF), test)
+            for s in seeds]
+        idx_train_g = on_dev(np.stack([s[0] for s in splits]))
+        idx_stop_g = on_dev(np.stack([s[1] for s in splits]))
+        y_train_g = on_dev(np.stack([labels_np[s[0]] for s in splits]))
+        y_stop_g = on_dev(np.stack([labels_np[s[1]] for s in splits]))
+        key_epochs_g, models = [], []
+        for s in seeds:
+            k_init, k_epochs = prng.split(prng.PRNGKey(int(s)))
+            models.append(init_mlp_params(x.shape[1], list(hidden_units),
+                                          n_classes, key=k_init,
+                                          device="cpu"))
+            key_epochs_g.append(k_epochs)
+        key_epochs_g = np.stack(key_epochs_g)              # (G, 2)
+        params_g = [torch.stack([m.layers[i].weight.t() for m in models])
+                    .to(dev).requires_grad_()
+                    for i in range(len(models[0].layers))]  # (G, d_in, d_out)
     optimizer = Adam(params_g, lr=learning_rate)
 
     # per seed: best weights, stopping acc and loss, epoch (-1: none yet)
@@ -270,24 +274,29 @@ def train_models(
         return [torch.where(m.view((-1,) + (1,) * (o.dim() - 1)), nw, o)
                 for nw, o in zip(new, old)]
 
-    def run_epoch(epoch: int, active: torch.Tensor) -> np.ndarray:
-        keys_g = prng.fold_in(key_epochs_g, epoch)        # (G, 2)
-        logp = grouped_forward(params_g, x, propagator, idx_train_g, keys_g,
-                               train=True, drop_prob=drop_prob,
-                               groups=groups)
-        loss_g = _nll_g(logp, y_train_g) + (reg_lambda / 2.0) * torch.sum(
-            params_g[0] ** 2, dim=(1, 2))
-        grads = torch.autograd.grad(loss_g.sum(), params_g)
-        optimizer.step(grads, mask=active)
-        with torch.no_grad():
+    def run_epoch(epoch: int, active: torch.Tensor) -> torch.Tensor:
+        """One step and the stopping eval; the epoch's 3·G scalars, on
+        the device (the caller reads them back after this frame's
+        tensors are freed, while the device still runs the eval)."""
+        with annotate("ppnp/forward"):
+            keys_g = prng.fold_in(key_epochs_g, epoch)    # (G, 2)
+            logp = grouped_forward(params_g, x, propagator, idx_train_g,
+                                   keys_g, train=True, drop_prob=drop_prob,
+                                   groups=groups)
+            loss_g = _nll_g(logp, y_train_g) + (reg_lambda / 2.0) \
+                * torch.sum(params_g[0] ** 2, dim=(1, 2))
+            loss = loss_g.sum()
+        with annotate("ppnp/backward"):
+            grads = torch.autograd.grad(loss, params_g)
+        with annotate("ppnp/optimizer"):
+            optimizer.step(grads, mask=active)
+        with torch.no_grad(), annotate("ppnp/eval"):
             logp = grouped_forward(params_g, x, propagator, idx_stop_g,
                                    train=False, groups=groups)
             stop_loss_g = _nll_g(logp, y_stop_g)
             stop_acc_g = ((logp.argmax(dim=-1) == y_stop_g).float()
                           .sum(dim=1) * (1.0 / y_stop_g.shape[1]))
-            # one device-to-host copy for the epoch's 3·G scalars
-            return torch.stack([loss_g.detach(), stop_acc_g,
-                                stop_loss_g]).cpu().numpy()
+            return torch.stack([loss_g.detach(), stop_acc_g, stop_loss_g])
 
     chunk_start = 0
     chunk_times: list = []
@@ -297,41 +306,49 @@ def train_models(
         count = min(epoch_chunk, max_epochs - chunk_start)
         ran = 0
         for epoch in range(chunk_start, chunk_start + count):
-            losses, accs, stop_losses = run_epoch(epoch, active)
-            ran += 1
-            act = ~stopped
-            if not np.isfinite(losses[act]).all():
-                g_bad = int(np.where(act & ~np.isfinite(losses))[0][0])
-                raise FloatingPointError(
-                    f"non-finite training loss at epoch {epoch} (seed "
-                    f"{seeds[g_bad]}, index {g_bad})")
-            last_epoch[act] = epoch
-            improved = act & ((accs > best_acc) | (
-                (accs == best_acc) & (stop_losses < best_loss)))
-            if improved.any():
-                best_params = where_seeds(improved, params_g, best_params)
-                best_acc = np.where(improved, accs, best_acc)
-                best_loss = np.where(improved, stop_losses, best_loss)
-                best_epoch[improved] = epoch
+            with annotate("ppnp/epoch"):
+                scalars = run_epoch(epoch, active)
+                with annotate("ppnp/readback"):
+                    # one device-to-host copy for the epoch's 3·G scalars
+                    losses, accs, stop_losses = scalars.cpu().numpy()
+                with annotate("ppnp/bookkeeping"):
+                    ran += 1
+                    act = ~stopped
+                    if not np.isfinite(losses[act]).all():
+                        g_bad = int(np.where(act & ~np.isfinite(losses))[0][0])
+                        raise FloatingPointError(
+                            f"non-finite training loss at epoch {epoch} "
+                            f"(seed {seeds[g_bad]}, index {g_bad})")
+                    last_epoch[act] = epoch
+                    improved = act & ((accs > best_acc) | (
+                        (accs == best_acc) & (stop_losses < best_loss)))
+                    if improved.any():
+                        best_params = where_seeds(improved, params_g,
+                                                  best_params)
+                        best_acc = np.where(improved, accs, best_acc)
+                        best_loss = np.where(improved, stop_losses,
+                                             best_loss)
+                        best_epoch[improved] = epoch
+                    for g in np.where(act)[0]:
+                        if es[g].check([float(accs[g]),
+                                        float(stop_losses[g])], epoch):
+                            stopped[g] = True
+                    if stopped.any() and not stopped.all():
+                        active = torch.from_numpy(~stopped).to(dev)
             if metrics is not None:
-                metrics.write(event="epoch", epoch=epoch,
-                              seeds=[int(s) for s in seeds],
-                              running=act.tolist(),
-                              train_loss=losses.tolist(),
-                              stopping_accuracy=accs.tolist(),
-                              stopping_loss=stop_losses.tolist())
-            for g in np.where(act)[0]:
-                if es[g].check([float(accs[g]), float(stop_losses[g])],
-                               epoch):
-                    stopped[g] = True
+                with annotate("ppnp/metrics"):
+                    metrics.write(event="epoch", epoch=epoch,
+                                  seeds=[int(s) for s in seeds],
+                                  running=act.tolist(),
+                                  train_loss=losses.tolist(),
+                                  stopping_accuracy=accs.tolist(),
+                                  stopping_loss=stop_losses.tolist())
             if print_interval and epoch % print_interval == 0:
                 logger.info("epoch %4d: mean stopping acc %.4f (%d/%d seeds "
                             "running)", epoch, float(accs.mean()),
                             int((~stopped).sum()), groups)
             if stopped.all():
                 break
-            if stopped.any():
-                active = torch.from_numpy(~stopped).to(dev)
         chunk_times.append((ran, time.perf_counter() - t_chunk))
         chunk_start += count
 

@@ -1,4 +1,4 @@
-"""Tracing and step timing: ``torch.profiler`` wrappers and a step timer.
+"""Tracing: ``torch.profiler`` wrappers, spans and set-up phases.
 
 The port's counterpart of ``ppnp_tpu/profiling.py``:
 
@@ -18,9 +18,24 @@ The port's counterpart of ``ppnp_tpu/profiling.py``:
   profiler runs, else a ``nullcontext``, so a label costs nothing when no
   trace is taken, as ``jax.named_scope`` costs nothing at run time. The
   forward labels its regions with the JAX package's names (``ppnp/mlp``,
-  ``ppnp/propagate``, ``ppnp/grouped_mlp``, ``ppnp/grouped_propagate``);
-- ``StepTimer``: a wall-clock EMA of step time and the bandwidth derived
-  from it (``train_model``'s ``spmm_gbps``), plain Python as in JAX.
+  ``ppnp/propagate``, ``ppnp/grouped_mlp``, ``ppnp/grouped_propagate``).
+  Training labels every epoch ``ppnp/epoch`` and, inside it and in this
+  order, ``ppnp/forward``, ``ppnp/backward`` (the ``torch.autograd.grad``
+  call), ``ppnp/optimizer``, ``ppnp/eval``, ``ppnp/readback`` (the one
+  device-to-host copy of the epoch's scalars) and ``ppnp/bookkeeping``
+  (the finite check, the best snapshot, the stopping checks, the copy
+  of the running seeds' mask); the
+  ``metrics`` row is written after the epoch's span has closed, inside a
+  ``ppnp/metrics`` span of its own (the writer is the caller's code).
+  ``get_predictions`` is one ``ppnp/request`` holding ``ppnp/mlp``,
+  ``ppnp/propagate`` and ``ppnp/readback``; every mask call is a
+  ``ppnp/masks``;
+- ``phase(name)``: work done once a call (``ppnp/setup/standardize``,
+  ``ppnp/setup/propagator``, ``ppnp/setup/attr``, ``ppnp/setup/seeds``),
+  timed on ``time.perf_counter`` whether or not a profiler runs and
+  summed by name in ``PHASES`` (``reset_phases`` clears it); under a
+  profiler it is an ``annotate`` span too; a context manager or a
+  decorator.
 """
 
 from __future__ import annotations
@@ -29,13 +44,14 @@ import contextlib
 import re
 import time
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile, record_function
 
-__all__ = ["trace", "trace_path", "annotate", "StepTimer"]
+__all__ = ["trace", "trace_path", "annotate", "phase", "PHASES",
+           "reset_phases"]
 
 
 _SESSION = re.compile(r"^(\d{8}-\d{6})-(\d+)$")
@@ -119,34 +135,23 @@ def annotate(name: str):
     return contextlib.nullcontext()
 
 
-class StepTimer:
-    """Wall-clock step timing with EMA and bandwidth derivation.
+# seconds spent in each ``phase`` since the process started (or the last
+# ``reset_phases``), by name
+PHASES: Dict[str, float] = {}
 
-    Call ``tick()`` after each (synchronised) step. ``gbps(bytes_per_step)``
-    converts the EMA into effective bandwidth.
-    """
 
-    def __init__(self, ema: float = 0.9):
-        self._ema_coef = ema
-        self._last: Optional[float] = None
-        self.ema_step_s: Optional[float] = None
-        self.steps = 0
+@contextlib.contextmanager
+def phase(name: str) -> Iterator[None]:
+    """Add the block's ``perf_counter`` seconds to ``PHASES[name]``, and
+    label it ``name`` in a trace (module docstring)."""
+    t0 = time.perf_counter()
+    try:
+        with annotate(name):
+            yield
+    finally:
+        PHASES[name] = PHASES.get(name, 0.0) + time.perf_counter() - t0
 
-    def tick(self) -> Optional[float]:
-        now = time.perf_counter()
-        dt = None
-        if self._last is not None:
-            dt = now - self._last
-            if self.ema_step_s is None:
-                self.ema_step_s = dt
-            else:
-                self.ema_step_s = (self._ema_coef * self.ema_step_s
-                                   + (1 - self._ema_coef) * dt)
-        self._last = now
-        self.steps += 1
-        return dt
 
-    def gbps(self, bytes_per_step: int) -> Optional[float]:
-        if not self.ema_step_s:
-            return None
-        return bytes_per_step / self.ema_step_s / 1e9
+def reset_phases() -> None:
+    """Empty ``PHASES``."""
+    PHASES.clear()

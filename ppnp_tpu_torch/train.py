@@ -25,9 +25,10 @@ host transfers (``_host_scalars``), to amortise the TPU's dispatch and
 transfer latency; PyTorch on the card runs eagerly, and one epoch reads
 its three scalars with one device-to-host copy. ``chunk_times`` still
 groups epochs by ``epoch_chunk``. ``profile_dir`` traces the
-steady-state chunks with ``torch.profiler`` (``profiling.trace``), and
-``spmm_gbps`` comes from ``profiling.StepTimer`` over full chunks, as in
-the JAX package.
+steady-state chunks with ``torch.profiler`` (``profiling.trace``); each
+epoch is a ``ppnp/epoch`` span holding its phases' spans
+(``profiling``'s docstring), and the ``metrics`` row is written after
+it.
 
 Matmuls run in full float32 (``allow_tf32`` off), as the JAX reference
 computes at f32. ``x_dtype=bfloat16`` stores only a dense X in bf16; fc1
@@ -78,7 +79,7 @@ from ppnp_tpu_torch.ops.sparse_input import (ShardedSparseInput,
 from ppnp_tpu_torch.optim import Adam
 from ppnp_tpu_torch.parallel.mesh import all_reduce_sum, is_rank0
 from ppnp_tpu_torch.parallel.sharded import RowSharded, all_gather_rows
-from ppnp_tpu_torch.profiling import StepTimer, trace
+from ppnp_tpu_torch.profiling import annotate, phase, trace
 
 logger = logging.getLogger(__name__)
 
@@ -119,6 +120,7 @@ def _warn_sparse_dtype(dtype: Optional[torch.dtype]) -> None:
                        str(dtype).removeprefix("torch."))
 
 
+@phase("ppnp/setup/attr")
 def prepare_attr_input(graph: SparseGraph, propagator, *,
                        x_format: str = "auto", x_dtype=None,
                        hidden: int = 64):
@@ -153,6 +155,8 @@ def prepare_attr_input(graph: SparseGraph, propagator, *,
     to the plan's ``n_pad`` rows: dense, or with "sparse" a
     ``ShardedSparseInput``; "auto" picks dense there, as the JAX rule
     does (``ppnp_tpu/train.py:215``).
+
+    Timed as the ``ppnp/setup/attr`` phase (``profiling.phase``).
     """
     dtype = _as_x_dtype(x_dtype)
     attr_norm = preprocessing.normalize_attributes(graph.attr_matrix)
@@ -244,12 +248,13 @@ def get_predictions(model: MLP, x, propagator) -> np.ndarray:
     so the card computes what the JAX reference computes at f32.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
-    with torch.no_grad():
+    with annotate("ppnp/request"), torch.no_grad():
         logp = ppnp_forward(model, x, propagator, None, train=False)
-        preds = logp.argmax(dim=-1)
-        if isinstance(propagator, RowSharded):
-            preds = all_gather_rows(preds, propagator.mesh)
-        return preds.cpu().numpy()
+        with annotate("ppnp/readback"):
+            preds = logp.argmax(dim=-1)
+            if isinstance(propagator, RowSharded):
+                preds = all_gather_rows(preds, propagator.mesh)
+            return preds.cpu().numpy()
 
 
 def _mean(x: torch.Tensor) -> torch.Tensor:
@@ -270,21 +275,25 @@ def loss_and_grads(model: MLP, x, propagator, idx: torch.Tensor,
     propagator: there the ranks' parts of the NLL's gradient are summed
     in one all-reduce, fc1's rounded to bf16 when X is bf16, and the L2
     term's added once after it (``parallel/sharded.py``'s gradient
-    rule)."""
+    rule). The forward is a ``ppnp/forward`` span, the gradients (and
+    their all-reduce) a ``ppnp/backward`` one."""
     params = [lin.weight for lin in model.layers]
-    logp = ppnp_forward(model, x, propagator, idx, key=key, train=True,
-                        drop_prob=drop_prob)
-    nll = _nll(logp, y)
-    loss = nll + (reg_lambda / 2.0) * l2_reg(model)
-    if not isinstance(propagator, RowSharded):
-        return loss, list(torch.autograd.grad(loss, params))
-    grads = all_reduce_sum(list(torch.autograd.grad(nll, params)),
-                           propagator.mesh)
-    if not isinstance(x, SparseInput) and x.dtype != params[0].dtype:
-        # the mixed fc1 left its dW unrounded: round the summed one
-        grads[0] = round_like(grads[0], x.dtype)
-    grads[0] = grads[0] + reg_lambda * params[0].detach()
-    return loss, grads
+    with annotate("ppnp/forward"):
+        logp = ppnp_forward(model, x, propagator, idx, key=key, train=True,
+                            drop_prob=drop_prob)
+        nll = _nll(logp, y)
+        loss = nll + (reg_lambda / 2.0) * l2_reg(model)
+    with annotate("ppnp/backward"):
+        if not isinstance(propagator, RowSharded):
+            grads = list(torch.autograd.grad(loss, params))
+        else:
+            grads = all_reduce_sum(list(torch.autograd.grad(nll, params)),
+                                   propagator.mesh)
+            if not isinstance(x, SparseInput) and x.dtype != params[0].dtype:
+                # the mixed fc1 left its dW unrounded: round the summed one
+                grads[0] = round_like(grads[0], x.dtype)
+            grads[0] = grads[0] + reg_lambda * params[0].detach()
+        return loss, grads
 
 
 def _snapshot(model: MLP):
@@ -339,7 +348,6 @@ def train_model(
         raise ValueError(f"dtype={dtype}: the port trains float32 weights "
                          "(x_dtype narrows the attribute matrix alone)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    sharded = isinstance(propagator, RowSharded)
     log = logger.info if is_rank0() else logger.debug
     t_start = time.time()
     idx_split_args = dict(idx_split_args or default_idx_split_args)
@@ -420,27 +428,27 @@ def train_model(
             "best_state": _state_dict(best[0]),
         })
 
-    def run_epoch(epoch: int):
+    def run_epoch(epoch: int) -> torch.Tensor:
+        """One step and the stopping eval; the epoch's three scalars, on
+        the device (read back by the caller once this frame's tensors
+        are freed, while the device still runs the eval)."""
         loss, grads = loss_and_grads(
             model, x, propagator, idx_train, y_train,
             key=prng.fold_in(key_epochs, epoch), drop_prob=drop_prob,
             reg_lambda=reg_lambda)
-        optimizer.step(grads)
-        with torch.no_grad():
+        with annotate("ppnp/optimizer"):
+            optimizer.step(grads)
+        with torch.no_grad(), annotate("ppnp/eval"):
             logp = ppnp_forward(model, x, propagator, idx_stop, train=False)
             stop_loss = _nll(logp, y_stop)
             stop_acc = _mean((logp.argmax(dim=-1) == y_stop).float())
-            # one device-to-host copy for the epoch's three scalars
-            return torch.stack([loss.detach(), stop_acc,
-                                stop_loss]).tolist()
+            return torch.stack([loss.detach(), stop_acc, stop_loss])
 
     last_epoch = max(start_epoch - 1, 0)
     stop = False
     chunk_start = start_epoch
-    # Per-chunk (n_epochs, wall_s) pairs; the EMA over full chunks after
-    # the first feeds result["spmm_gbps"], as in the JAX package.
+    # Per-chunk (n_epochs, wall_s) pairs
     chunk_times: list = []
-    chunk_timer = StepTimer()
     tracing = contextlib.ExitStack()
     traced = False
     while chunk_start < max_epochs and not stop:
@@ -453,30 +461,35 @@ def train_model(
         t_chunk = time.perf_counter()
         count = min(epoch_chunk, max_epochs - chunk_start)
         for epoch in range(chunk_start, chunk_start + count):
-            loss, acc, stop_loss = run_epoch(epoch)
-            last_epoch = epoch
-            if not np.isfinite(loss):
-                tracing.close()
-                raise FloatingPointError(
-                    f"non-finite training loss at epoch {epoch} "
-                    f"(loss={loss}); check learning rate / inputs")
-            if acc > best[1] or (acc == best[1] and stop_loss < best[2]):
-                best = (_snapshot(model), acc, stop_loss, epoch)
+            with annotate("ppnp/epoch"):
+                scalars = run_epoch(epoch)
+                with annotate("ppnp/readback"):
+                    # one device-to-host copy for the epoch's three scalars
+                    loss, acc, stop_loss = scalars.tolist()
+                with annotate("ppnp/bookkeeping"):
+                    last_epoch = epoch
+                    if not np.isfinite(loss):
+                        tracing.close()
+                        raise FloatingPointError(
+                            f"non-finite training loss at epoch {epoch} "
+                            f"(loss={loss}); check learning rate / inputs")
+                    if acc > best[1] or (acc == best[1]
+                                         and stop_loss < best[2]):
+                        best = (_snapshot(model), acc, stop_loss, epoch)
+                    stop = early_stopping.check([acc, stop_loss], epoch)
             if metrics is not None:
-                metrics.write(event="epoch", epoch=epoch, train_loss=loss,
-                              stopping_accuracy=acc,
-                              stopping_loss=stop_loss)
+                with annotate("ppnp/metrics"):
+                    metrics.write(event="epoch", epoch=epoch,
+                                  train_loss=loss, stopping_accuracy=acc,
+                                  stopping_loss=stop_loss)
             if print_interval and epoch % print_interval == 0:
                 log(
                     "epoch %4d: train loss %.4f, stopping acc %.4f "
                     "loss %.4f", epoch, loss, acc, stop_loss)
-            if early_stopping.check([acc, stop_loss], epoch):
-                stop = True
+            if stop:
                 break
         chunk_times.append((last_epoch - chunk_start + 1,
                             time.perf_counter() - t_chunk))
-        if count == epoch_chunk and not stop:
-            chunk_timer.tick()
         if checkpoint_dir is not None and (
                 stop or (chunk_start // checkpoint_every)
                 != ((last_epoch + 1) // checkpoint_every)):
@@ -525,20 +538,6 @@ def train_model(
         best_epoch=best_epoch,
         predictions=preds,
     )
-    # Effective propagation bandwidth from the steady-state chunk EMA: an
-    # epoch moves ~3·K SpMMs (forward K, backward K, stopping eval K),
-    # each touching the edge stream (nnz·8 B) and H in and out (2·n·c·4 B).
-    # Only where there is an edge operator (not for exact PPNP).
-    # Not for a sharded propagator, as in the JAX package (it has no
-    # ``edges``).
-    niter = getattr(propagator, "niter", None)
-    op = getattr(propagator, "edges", None)
-    if op is None:
-        op = getattr(propagator, "csr", None)
-    if chunk_timer.ema_step_s and niter and op is not None and not sharded:
-        bytes_per_step = op.nnz * 8 + 2 * x.shape[0] * n_classes * 4
-        result["spmm_gbps"] = chunk_timer.gbps(
-            epoch_chunk * 3 * niter * bytes_per_step)
     if metrics is not None:
         metrics.write(event="final", **{
             k: v for k, v in result.items() if k != "predictions"})

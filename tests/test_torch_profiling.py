@@ -27,11 +27,11 @@ import pytest
 import torch
 
 from ppnp_tpu.metrics import TensorboardWriter as JTensorboardWriter
-from ppnp_tpu.profiling import StepTimer as JStepTimer
 
 from ppnp_tpu_torch import builders as t_builders
 from ppnp_tpu_torch import metrics as t_metrics
 from ppnp_tpu_torch import profiling
+from ppnp_tpu_torch import multiseed as t_multiseed
 from ppnp_tpu_torch import train as t_train
 from ppnp_tpu_torch.__main__ import main as t_main
 from ppnp_tpu_torch.config import RunConfig
@@ -182,34 +182,199 @@ def test_train_then_bench_profile_keep_both(tmp_path, monkeypatch, capsys):
     assert _count(_events(bench_trace), "ppnp/mlp") >= 4
 
 
-def test_step_timer_matches_jax(monkeypatch):
-    """The same ticks give the JAX timer's EMA and GB/s."""
-    clock = iter([0.0, 0.5, 1.5, 1.75, 4.0] * 2)
-    monkeypatch.setattr("time.perf_counter", lambda: next(clock))
-    ours, theirs = profiling.StepTimer(), JStepTimer()
-    assert ours.gbps(1) is None
-    dts = [ours.tick() for _ in range(5)]
-    for _ in range(5):
-        theirs.tick()
-    assert dts == [None, 0.5, 1.0, 0.25, 2.25]
-    assert ours.steps == theirs.steps == 5
-    assert ours.ema_step_s == theirs.ema_step_s
-    assert ours.gbps(10 ** 9) == theirs.gbps(10 ** 9)
-
-
 def test_train_model_traces_steady_state_chunks(port_graph, tmp_path):
     """6 epochs in chunks of 2: the trace starts after the first chunk,
     so it holds epochs 2-5 (a train and an eval forward each) and not the
-    final evaluation; ``spmm_gbps`` comes from the chunk timer."""
+    final evaluation."""
     prop = _prop(port_graph)
-    _, res = t_train.train_model(
+    t_train.train_model(
         port_graph, prop, idx_split_args=SPLIT, print_interval=0,
         stopping_args={"max_epochs": 6, "patience": 100}, epoch_chunk=2,
         x_format="sparse", profile_dir=str(tmp_path))
     events = _events(profiling.trace_path(tmp_path))
     assert _count(events, "ppnp/mlp") == _count(events,
                                                  "ppnp/propagate") == 8
-    assert res["spmm_gbps"] > 0
+    assert _count(events, "ppnp/epoch") == 4
+
+
+EPOCH_PHASES = ("ppnp/forward", "ppnp/backward", "ppnp/optimizer",
+                "ppnp/eval", "ppnp/readback", "ppnp/bookkeeping")
+
+
+def _spans(events, name):
+    """The (start, end) µs of every host span ``name``, in order."""
+    return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("name") == name
+                  and e.get("cat") == "user_annotation")
+
+
+def _inside(span, outer):
+    return outer[0] <= span[0] and span[1] <= outer[1]
+
+
+class _SpanWriter:
+    """A ``metrics`` writer that keeps its rows and writes each inside a
+    span of its own, as a writer that opens a profiler window does."""
+
+    def __init__(self):
+        self.rows = []
+
+    def write(self, **row):
+        with profiling.annotate("test/row"):
+            self.rows.append(row)
+
+
+def _train(kind, graph, epochs, metrics=None, **kw):
+    """``epochs`` epochs of ``train_model`` or of a two-seed
+    ``train_models`` on the pallas arm, sparse X; returns the results."""
+    args = dict(idx_split_args=SPLIT, print_interval=0, metrics=metrics,
+                x_format="sparse")
+    args.update(kw)
+    args.setdefault("stopping_args", {"max_epochs": epochs,
+                                      "patience": 100})
+    if kind == "train_model":
+        return t_train.train_model(graph, _prop(graph), **args)
+    return t_multiseed.train_models(graph, _prop(graph), [11, 12], **args)
+
+
+@pytest.mark.parametrize("kind", ["train_model", "train_models"])
+def test_every_phase_of_the_epoch_is_a_span(port_graph, tmp_path, kind):
+    """3 epochs under ``trace``: three ``ppnp/epoch`` spans, each holding
+    one span of each phase, disjoint and in the order the epoch runs
+    them; the masks are spans of their own inside the forward."""
+    with profiling.trace(tmp_path):
+        _train(kind, port_graph, 3)
+    events = _events(profiling.trace_path(tmp_path))
+    epochs = _spans(events, "ppnp/epoch")
+    assert len(epochs) == 3
+    assert all(a[1] <= b[0] for a, b in zip(epochs, epochs[1:]))
+    # the final evaluation's request holds a readback of its own
+    phases = {name: [s for s in _spans(events, name)
+                     if any(_inside(s, e) for e in epochs)]
+              for name in EPOCH_PHASES}
+    for name, spans in phases.items():
+        assert len(spans) == 3, name
+    for i, epoch in enumerate(epochs):
+        mine = [phases[name][i] for name in EPOCH_PHASES]
+        assert all(_inside(s, epoch) for s in mine)
+        assert all(a[1] <= b[0] for a, b in zip(mine, mine[1:]))
+        forward = phases["ppnp/forward"][i]
+        assert any(_inside(m, forward) for m in _spans(events, "ppnp/masks"))
+
+
+@pytest.mark.parametrize("kind", ["train_model", "train_models"])
+def test_every_row_is_written_outside_the_epoch(port_graph, tmp_path,
+                                                kind):
+    """A writer that opens its own span: every row's span lies outside
+    every ``ppnp/epoch``, after the epoch it reports, inside a
+    ``ppnp/metrics`` span."""
+    writer = _SpanWriter()
+    with profiling.trace(tmp_path):
+        _train(kind, port_graph, 3, metrics=writer)
+    events = _events(profiling.trace_path(tmp_path))
+    epochs = _spans(events, "ppnp/epoch")
+    rows = _spans(events, "test/row")
+    assert [r["epoch"] for r in writer.rows
+            if r["event"] == "epoch"] == [0, 1, 2]
+    assert len(epochs) == 3 and len(rows) >= 3
+    for row in rows:
+        assert not any(row[0] < e[1] and e[0] < row[1] for e in epochs)
+    for epoch, row in zip(epochs, rows):
+        assert epoch[1] <= row[0]
+    writes = _spans(events, "ppnp/metrics")
+    assert len(writes) == 3
+    assert all(any(_inside(r, w) for w in writes) for r in rows[:3])
+
+
+@pytest.mark.parametrize("kind", ["train_model", "train_models"])
+def test_the_stopping_epoch_writes_its_row(port_graph, kind):
+    """Training that stops early (patience 2; the two seeds of a sweep at
+    different epochs) writes a row for every epoch that ran, the stopping
+    one included; ``running`` is each seed's state before that epoch's
+    stopping checks."""
+    writer = _SpanWriter()
+    out = _train(kind, port_graph, 50, metrics=writer, learning_rate=0.05,
+                 stopping_args={"max_epochs": 50, "patience": 2,
+                                "stop_varnames": [StopVariable.LOSS]})
+    rows = [r for r in writer.rows if r["event"] == "epoch"]
+    last = ([out[1]["last_epoch"]] if kind == "train_model"
+            else [res["last_epoch"] for _, res in out])
+    assert max(last) < 49
+    assert [r["epoch"] for r in rows] == list(range(max(last) + 1))
+    if kind == "train_models":
+        assert len(set(last)) == 2
+        for g, stop in enumerate(last):
+            assert [r["running"][g] for r in rows] == [
+                e <= stop for e in range(max(last) + 1)]
+
+
+def test_a_request_is_one_span(port_graph, tmp_path):
+    """``get_predictions``: one ``ppnp/request`` holding ``ppnp/mlp``,
+    ``ppnp/propagate`` and ``ppnp/readback``, in that order."""
+    prop = _prop(port_graph, "fused")
+    x = t_train.prepare_attr_input(port_graph, prop, x_format="sparse")
+    model = init_mlp_params(128, [16], 4, key=prng.PRNGKey(0), device="cpu")
+    with profiling.trace(tmp_path):
+        t_train.get_predictions(model, x, prop)
+    events = _events(profiling.trace_path(tmp_path))
+    (request,) = _spans(events, "ppnp/request")
+    inner = []
+    for name in ("ppnp/mlp", "ppnp/propagate", "ppnp/readback"):
+        (span,) = _spans(events, name)
+        assert _inside(span, request), name
+        inner.append(span)
+    assert all(a[1] <= b[0] for a, b in zip(inner, inner[1:]))
+
+
+def test_phases_are_timed_without_a_profiler(port_graph):
+    """Set-up fills ``PHASES`` with no profiler running, each phase once
+    a call; ``reset_phases`` empties it."""
+    profiling.reset_phases()
+    assert profiling.PHASES == {}
+    graph = make_attributed_sbm(n_nodes=300, n_classes=3, n_features=64,
+                                n_edges=1200, seed=2).standardize()
+    prop = _prop(graph)
+    t_train.prepare_attr_input(graph, prop, x_format="sparse")
+    assert not torch.autograd._profiler_enabled()
+    assert set(profiling.PHASES) == {"ppnp/setup/standardize",
+                                     "ppnp/setup/propagator",
+                                     "ppnp/setup/attr"}
+    assert all(v > 0 for v in profiling.PHASES.values())
+    _train("train_models", port_graph, 1)
+    assert profiling.PHASES["ppnp/setup/seeds"] > 0
+    profiling.reset_phases()
+    assert profiling.PHASES == {}
+
+
+def test_phases_are_spans_under_a_trace(tmp_path):
+    """Under ``trace`` each set-up phase is one span of its name."""
+    profiling.reset_phases()
+    with profiling.trace(tmp_path):
+        graph = make_attributed_sbm(n_nodes=300, n_classes=3,
+                                    n_features=64, n_edges=1200,
+                                    seed=2).standardize()
+        prop = _prop(graph)
+        t_train.prepare_attr_input(graph, prop, x_format="sparse")
+    events = _events(profiling.trace_path(tmp_path))
+    for name in profiling.PHASES:
+        assert len(_spans(events, name)) == 1, name
+    assert len(profiling.PHASES) == 3
+    profiling.reset_phases()
+
+
+def test_no_span_is_made_without_a_profiler(port_graph, monkeypatch):
+    """With no profiler running, training, a request and set-up create
+    no ``record_function``."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) without a "
+                             "profiler")
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    prop = _prop(port_graph)
+    x = t_train.prepare_attr_input(port_graph, prop, x_format="sparse")
+    for kind in ("train_model", "train_models"):
+        _train(kind, port_graph, 2)
+    model = init_mlp_params(128, [16], 4, key=prng.PRNGKey(0), device="cpu")
+    t_train.get_predictions(model, x, prop)
 
 
 def test_train_model_first_chunk_stop_traces_final_eval(port_graph,

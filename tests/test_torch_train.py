@@ -209,7 +209,8 @@ def test_train_model_matches_jax(small_graph, port_graph):
     np.testing.assert_array_equal([r["stopping_accuracy"] for r in trows],
                                   [r["stopping_accuracy"] for r in jrows])
     assert got["valtest"]["accuracy"] == want["valtest"]["accuracy"]
-    assert set(want) - {"spmm_gbps"} <= set(got)
+    # every key but the JAX package's bandwidth estimate (GB/s)
+    assert set(want) - set(got) <= {k for k in want if k.endswith("_gbps")}
     assert [c for c, _ in got["chunk_times"]] == [10, 10, 10]
 
 
