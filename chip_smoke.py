@@ -31,8 +31,10 @@ order; any failure exits non-zero and nothing is caught:
    rows per band, the bands a block waits on and where its clock went.
    K2 (grouped, G = 10 seeds) is held the same way at the propagation
    step (150 lanes, with init) and its backward on Âᵀ, and at the sparse
-   fc1 (640 lanes) and its backward on Xᵀ, and bit for bit against G K1
-   launches on the per-group slices; K1 also at the batched sweep's eval
+   fc1 (640 lanes) and its backward on Xᵀ, and at G = 100 (the
+   benchmark sweep's 1,500 lanes, slots straddling two seeds) at the step
+   and its backward, and bit for bit against G K1 launches on the
+   per-group slices, with the launches' vector width and straddling; K1 also at the batched sweep's eval
    shapes (the step at G·c = 150 lanes with init and one shared plane,
    fc1 at G·hidden = 640 lanes); and at the retrieval width c = 64 on
    Â: K3 (shared plane) held bit-equal to K queued K1 launches before it
@@ -847,8 +849,11 @@ def grouped_kernel_phase(dev):
     """K2 at MS Academic with the G = 10 seeds of the sweep: the
     propagation step (cg = 15, 150 lanes, with init) and its backward on
     Âᵀ, the sparse fc1 (X with G planes, cg = 64, 640 lanes) and its
-    backward on Xᵀ; each within the tolerance of the plain version and
-    bit-equal to G K1 launches on the per-group slices. Also K1 at the
+    backward on Xᵀ; and at the benchmark sweep's G = 100 seeds the step
+    (1,500 lanes, with init) and its backward on Âᵀ, where float4 slots
+    straddle two seeds. Each within the tolerance of the plain version and
+    bit-equal to G K1 launches on the per-group slices; each record keeps
+    its launches' ``K2_SHAPES`` (vector width, straddling). Also K1 at the
     batched eval's shapes: the step on the lane-stacked H (G·c = 150
     lanes, init, the one shared plane of (1-α)Â) and fc1 on the
     lane-stacked W₁ (G·hidden = 640 lanes). Returns the records of
@@ -857,7 +862,8 @@ def grouped_kernel_phase(dev):
     from ppnp_tpu_torch.builders import build_propagator, load_graph
     from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.kernels.masks import edge_masks
-    from ppnp_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_grouped,
+    from ppnp_tpu_torch.kernels.spmm import (K2_SHAPES, spmm_csr,
+                                             spmm_csr_grouped,
                                              spmm_csr_grouped_bwd,
                                              spmm_csr_grouped_plain,
                                              spmm_csr_plain)
@@ -892,50 +898,63 @@ def grouped_kernel_phase(dev):
           f"{groups * c} | fc1 X {n}x{f} nnz={x.nnz} lanes={groups * hidden}")
 
     def per_group(op, h_, planes_, init_, cg):
-        """G K1 launches on contiguous per-group slices (sliced here,
-        outside the timed calls)."""
-        sl = [slice(k * cg, (k + 1) * cg) for k in range(groups)]
+        """One K1 launch per plane on contiguous per-group slices (sliced
+        here, outside the timed calls)."""
+        sl = [slice(k * cg, (k + 1) * cg) for k in range(planes_.shape[0])]
         hs = [h_[:, s_].contiguous() for s_ in sl]
         inits = [None if init_ is None else init_[:, s_].contiguous()
                  for s_ in sl]
 
         def run():
-            return [op(hs[k], planes_[k], inits[k]) for k in range(groups)]
+            return [op(hs[k], planes_[k], inits[k]) for k in range(len(sl))]
         return run
 
     def coo_batch(m, planes_):
         """(G, rows, cols) sparse COO of the G masked weight sets."""
+        groups_ = planes_.shape[0]
         rows = m.row_ids()
         idx = torch.stack([
-            torch.arange(groups, device=dev).repeat_interleave(m.nnz),
-            rows.repeat(groups), m.col.long().repeat(groups)])
+            torch.arange(groups_, device=dev).repeat_interleave(m.nnz),
+            rows.repeat(groups_), m.col.long().repeat(groups_)])
         return torch.sparse_coo_tensor(
-            idx, planes_.reshape(-1), (groups, m.n_rows, m.n_cols)).coalesce()
+            idx, planes_.reshape(-1), (groups_, m.n_rows, m.n_cols)
+        ).coalesce()
 
     def batched(h_, cg):
-        return h_.view(h_.shape[0], groups, cg).permute(1, 0, 2).contiguous()
+        return h_.view(h_.shape[0], -1, cg).permute(1, 0, 2).contiguous()
 
     def held(name, kernel, plain, library, bytes_moved, flops, k1_run):
+        before = dict(K2_SHAPES)
         rec = record(name, kernel, plain, library, bytes_moved, flops,
                      k1_x_G_ms=k1_run)
-        out, ref = kernel(), torch.cat(k1_run(), dim=1)
+        rec["k2_shapes"] = {f"{k[0]} vec={k[1]} straddles={k[2]}":
+                            v - before.get(k, 0)
+                            for k, v in K2_SHAPES.items()
+                            if v > before.get(k, 0)}
+        out, refs = kernel(), k1_run()
         torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise SystemExit(f"{name}: not bit-equal to {groups} K1 "
+        if not torch.equal(out, torch.cat(refs, dim=1)):
+            raise SystemExit(f"{name}: not bit-equal to {len(refs)} K1 "
                              "launches on the per-group slices")
-        print(f"{name}: bit-equal to {groups} K1 launches")
+        print(f"{name}: bit-equal to {len(refs)} K1 launches; "
+              f"k2_shapes={rec['k2_shapes']}")
         return rec
 
     def k1(m):
         return lambda h_, w, i: spmm_csr(m, h_, w, i)
+
+    def step_bytes(m, groups_, lanes_, dense):
+        """row_ptr, col, the G planes, and ``dense`` (n × lanes) arrays."""
+        return ((m.n_rows + 1) * 4 + m.nnz * 4 + groups_ * m.nnz * 4
+                + dense * m.n_rows * lanes_ * 4)
 
     lanes = groups * c
     a_lib, hb = coo_batch(a, planes), batched(h, c)
     step = held("K2 step", lambda: spmm_csr_grouped(a, h, planes, init),
                 lambda: spmm_csr_grouped_plain(a, h, planes, init),
                 lambda: torch.bmm(a_lib, hb),
-                (n + 1) * 4 + a.nnz * 4 + groups * a.nnz * 4
-                + 3 * n * lanes * 4, 2 * a.nnz * lanes + n * lanes,
+                step_bytes(a, groups, lanes, 3),
+                2 * a.nnz * lanes + n * lanes,
                 per_group(k1(a), h, planes, init, c))
     x_lib, wb = coo_batch(x, planes_x), batched(w1s, hidden)
     lanes_x = groups * hidden
@@ -950,8 +969,7 @@ def grouped_kernel_phase(dev):
                lambda: spmm_csr_grouped_bwd(a_t, g, planes_t),
                lambda: spmm_csr_grouped_plain(a_t, g, planes_t),
                lambda: torch.bmm(at_lib, gb),
-               (n + 1) * 4 + a_t.nnz * 4 + groups * a_t.nnz * 4
-               + 2 * n * lanes * 4, 2 * a_t.nnz * lanes,
+               step_bytes(a_t, groups, lanes, 2), 2 * a_t.nnz * lanes,
                per_group(k1(a_t), g, planes_t, None, c))
     xt_lib, dhb = coo_batch(x_t, planes_xt), batched(dh, hidden)
     bwd_x = held("K2 bwd fc1 (dW)",
@@ -961,6 +979,36 @@ def grouped_kernel_phase(dev):
                  (f + 1) * 4 + x_t.nnz * 4 + groups * x_t.nnz * 4
                  + (n + f) * lanes_x * 4, 2 * x_t.nnz * lanes_x,
                  per_group(k1(x_t), dh, planes_xt, None, hidden))
+    # the benchmark sweep's 100 seeds: 1,500 lanes, float4 slots that
+    # straddle two seeds' columns
+    groups100 = 100
+    lanes100 = groups100 * c
+    keys100 = np.stack([prng.fold_in(prng.PRNGKey(s), 0)
+                        for s in range(groups100)])
+    planes100, planes100_t = edge_masks(keys100, a, a_t, keep=keep,
+                                        scale=1.0 - alpha)
+    h100, g100 = randn(n, lanes100), randn(n, lanes100)
+    init100 = alpha * h100
+    a_lib100 = coo_batch(a, planes100)
+    hb100 = batched(h100, c)
+    step100 = held(
+        "K2 step (G=100)",
+        lambda: spmm_csr_grouped(a, h100, planes100, init100),
+        lambda: spmm_csr_grouped_plain(a, h100, planes100, init100),
+        lambda: torch.bmm(a_lib100, hb100),
+        step_bytes(a, groups100, lanes100, 3),
+        2 * a.nnz * lanes100 + n * lanes100,
+        per_group(k1(a), h100, planes100, init100, c))
+    del a_lib100, hb100
+    at_lib100, gb100 = coo_batch(a_t, planes100_t), batched(g100, c)
+    bwd100 = held(
+        "K2 bwd step (G=100)",
+        lambda: spmm_csr_grouped_bwd(a_t, g100, planes100_t),
+        lambda: spmm_csr_grouped_plain(a_t, g100, planes100_t),
+        lambda: torch.bmm(at_lib100, gb100),
+        step_bytes(a_t, groups100, lanes100, 2), 2 * a_t.nnz * lanes100,
+        per_group(k1(a_t), g100, planes100_t, None, c))
+    del at_lib100, gb100
     # K1 in the batched eval forward: K steps on the lane-stacked H with
     # the shared (1-α)Â weights, and fc1 on the lane-stacked W₁
     ws = prop.w_scaled
@@ -980,12 +1028,12 @@ def grouped_kernel_phase(dev):
                       2 * x.nnz * lanes_x)
     return {
         "spmm_csr": {"eval_step": eval_step, "eval_fc1": eval_fc1},
-        "spmm_grouped": dict(step, max_abs_err=max(step["max_abs_err"],
-                                                   fc1["max_abs_err"]),
-                             fc1=fc1),
-        "spmm_grouped_bwd": dict(bwd, max_abs_err=max(bwd["max_abs_err"],
-                                                      bwd_x["max_abs_err"]),
-                                 fc1=bwd_x),
+        "spmm_grouped": dict(step, max_abs_err=max(
+            step["max_abs_err"], fc1["max_abs_err"],
+            step100["max_abs_err"]), fc1=fc1, step_g100=step100),
+        "spmm_grouped_bwd": dict(bwd, max_abs_err=max(
+            bwd["max_abs_err"], bwd_x["max_abs_err"],
+            bwd100["max_abs_err"]), fc1=bwd_x, step_g100=bwd100),
     }
 
 

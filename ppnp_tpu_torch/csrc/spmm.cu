@@ -27,9 +27,11 @@
 // flops per edge and column, ~1 % of the byte time at the 67 TFLOP/s f32
 // rate. At MS Academic: K1 at the propagation step (206,015 edges, 18,331
 // rows, c = 15) ~5 MB, 1.5 us at 3.35 TB/s; K2 at G = 10 (150 lanes, with
-// init) ~42 MB, 12.6 us; the sparse fc1 on X and its backward on X^T (640
-// lanes) ~71 MB, 21 us. The gather reads one H row slice per edge from L2
-// (~124 MB at the K2 step, ~375 MB at fc1), and L1 serves little of it:
+// init) ~42 MB, 12.6 us, and at G = 100 (1,500 lanes) ~413 MB, 123 us;
+// the sparse fc1 on X and its backward on X^T (640 lanes) ~71 MB, 21 us.
+// The gather reads one H row slice per edge from L2 (~124 MB at the K2
+// step at G = 10, 1.24 GB at G = 100, ~375 MB at fc1), and L1 serves
+// little of it:
 // even 512 consecutive rows of the RCM-ordered operators gather 75 %
 // distinct rows. So the floor in practice is the L2-to-SM rate.
 //
@@ -37,8 +39,18 @@
 // - A group of L lanes (8, 16 or 32: the fewest that cover the row's
 //   vector slots, so c = 15 packs two rows into a warp) owns one row and
 //   one column tile of L * VEC * V columns. Each lane keeps V register
-//   accumulators of VEC floats (float4 / float2 loads where cg and the
-//   pointers allow; V * VEC <= 8).
+//   accumulators of VEC floats (float4 / float2 loads where the widths
+//   and the pointers allow; V * VEC <= 8).
+// - A slot need not lie in one group. Where a row takes several passes
+//   (c > 256) and VEC divides c but not cg (cg = 15 at G = 100: 1,500
+//   lanes), a slot runs from its first group into the next (cg >= VEC, so
+//   never further). Its lane then loads both groups' plane words per edge
+//   and gives each column its own group's; the gather stays one float4 /
+//   float2. Each column still runs its own fmaf chain with its group's
+//   weights, so straddling changes no bit. Straddling launches are their
+//   own instantiation (STRADDLE), so K1 and the launches whose VEC divides
+//   cg run the code they ran before. Taking the next group's word from
+//   lane + 1 by a shuffle measured no faster.
 // - Edges outer, columns inner: one pass over a row's edges per tile,
 //   where a lane that strides over the columns walks the row once per
 //   column it owns (5 walks at 150 lanes, 20 at 640). The loop body is unrolled
@@ -50,10 +62,11 @@
 // - Rows wider than one warp tile (640 lanes: 160 float4 slots) are cut
 //   into column tiles of one slot per lane, a 2-D grid of (rows, tiles):
 //   more, lighter warps beat deeper register tiles. With many rows (X:
-//   18,331) the tiles are 8 lanes wide, with few (X^T: 6,805) 32.
+//   18,331) the tiles are 8 lanes wide, with few (X^T: 6,805) 32;
+//   straddling tiles are 32 lanes wide (the sweep's A_hat: 18,331 rows).
 // - Output is written with streaming stores: out is not read again in the
 //   launch, and evicting it first keeps H's rows in L2.
-// - One column per lane (odd widths up to 16, as c = 15) is the per-lane
+// - One column per lane (VEC = V = 1, as K1 at c = 15) is the per-lane
 //   walk ppnp::row_dot: there it already is one pass, and it measured
 //   fastest.
 // - Not used: wgmma / tensor cores (an f32 gather at ~2 flops per gathered
@@ -100,8 +113,9 @@ __device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
   }
 }
 
-// Grid: x over blocks of kBlock / L rows, y over column tiles.
-template <int L, int VEC, int V>
+// Grid: x over blocks of kBlock / L rows, y over column tiles. STRADDLE:
+// a slot may run past its group's last column into the next group.
+template <int L, int VEC, int V, bool STRADDLE>
 __global__ void __launch_bounds__(ppnp::kBlock)
 spmm_rows_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
                  const float* __restrict__ w_g, const float* __restrict__ h,
@@ -125,16 +139,20 @@ spmm_rows_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
     return;
   }
 
-  // Each slot (VEC columns) lies in one group, since VEC divides cg; its
-  // plane is w_g + g * nnz (a slot past c reads plane 0 and is not used).
-  // K1 (cg == c) has one plane and no division.
+  // A slot's first column j lies in group g = j / cg, whose plane is
+  // w_g + g * nnz (a slot past c reads plane 0 and is not used). Its
+  // first split[v] columns belong to g; with STRADDLE the rest, if any,
+  // to g + 1, whose plane follows nnz words later. Without it VEC divides
+  // cg and split[v] == VEC. K1 (cg == c) has one plane and no division.
   const float* w_slot[V];
+  int split[V];
   bool live[V];
   float acc[V][VEC];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     live[v] = j0 + v * kStep < c;
     w_slot[v] = w_g;
+    split[v] = VEC;
     if (live[v] && init != nullptr) {
       load_vec<VEC>(init + base + j0 + v * kStep, acc[v]);
     } else {
@@ -142,7 +160,7 @@ spmm_rows_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
       for (int q = 0; q < VEC; ++q) acc[v][q] = 0.0f;
     }
   }
-  bool one_plane = true;  // this lane's slots share one plane
+  bool one_plane = true;  // this lane's slots start in one group
   if (cg < c) {
     int g = j0 / cg;
     int r = j0 - g * cg;
@@ -150,7 +168,10 @@ spmm_rows_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
     const int step_r = kStep - step_g * cg;
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      if (live[v]) w_slot[v] = w_g + static_cast<size_t>(g) * nnz;
+      if (live[v]) {
+        w_slot[v] = w_g + static_cast<size_t>(g) * nnz;
+        if constexpr (STRADDLE) split[v] = min(cg - r, VEC);
+      }
       one_plane = one_plane && w_slot[v] == w_slot[0];
       g += step_g;
       r += step_r;
@@ -171,8 +192,16 @@ spmm_rows_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
       if (live[v]) {
         float x[VEC];
         load_vec<VEC>(src + v * kStep, x);
+        if constexpr (STRADDLE) {
+          const float wn = split[v] < VEC ? __ldg(w_slot[v] + nnz + e) : wt;
 #pragma unroll
-        for (int q = 0; q < VEC; ++q) acc[v][q] = fmaf(wt, x[q], acc[v][q]);
+          for (int q = 0; q < VEC; ++q)
+            acc[v][q] = fmaf(q < split[v] ? wt : wn, x[q], acc[v][q]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < VEC; ++q)
+            acc[v][q] = fmaf(wt, x[q], acc[v][q]);
+        }
       }
     }
   }
@@ -184,6 +213,7 @@ spmm_rows_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
 
 struct Shape {
   int lanes, vec, v, tiles;
+  bool straddle;  // VEC does not divide cg: slots straddle two groups
 };
 
 bool aligned(const void* p, int vec) {
@@ -195,15 +225,27 @@ bool aligned(const void* p, int vec) {
 // row's slots. Above 32 slots a warp holds V slots per lane for one pass
 // over the row while V * VEC <= 8 floats; wider rows are cut into tiles
 // of one slot per lane.
+//
+// Where a row takes more than one pass at any VEC (c > 32 * kMaxFloats),
+// VEC need only divide c, with cg >= VEC: slots then straddle two groups
+// where VEC does not divide cg (cg = 15 at G = 100: float4 tiles of 128
+// columns instead of 188 tiles of 8 scalar columns), and such rows are cut
+// into tiles of 32 lanes whatever the row count. Measured on the H100 at
+// G = 100: 229-231 us a step at 32 lanes, 235-237 at 16, 245-254 at 8; at
+// G = 10 (150 columns, one pass of V = 5 scalars) every straddling shape
+// was slower (float2: 40-58 us against 32).
 Shape choose_shape(int n_rows, int c, int cg, const float* h,
                    const float* init) {
+  const bool passes = c > 32 * kMaxFloats;
   int vec = 4;
-  while (vec > 1 && (cg % vec != 0 || !aligned(h, vec) ||
-                     (init != nullptr && !aligned(init, vec))))
+  while (vec > 1 &&
+         ((passes ? c % vec != 0 || cg < vec : cg % vec != 0) ||
+          !aligned(h, vec) || (init != nullptr && !aligned(init, vec))))
     vec /= 2;
   const int slots = c / vec;
-  Shape s{32, vec, 1, 1};
-  if (slots <= 8) {
+  Shape s{32, vec, 1, 1, cg % vec != 0};
+  if (s.straddle) {  // 32 lanes, one slot a lane
+  } else if (slots <= 8) {
     s.lanes = 8;
   } else if (slots <= 16) {
     s.lanes = 16;
@@ -217,18 +259,18 @@ Shape choose_shape(int n_rows, int c, int cg, const float* h,
   return s;
 }
 
-template <int L, int VEC, int V>
+template <int L, int VEC, int V, bool S = false>
 void launch(const Shape& s, const int* row_ptr, const int* col,
             const float* w_g, const float* h, const float* init, float* out,
             int n_rows, int c, int cg, int nnz, cudaStream_t stream) {
   constexpr int kRows = ppnp::kBlock / L;
   const dim3 grid((n_rows + kRows - 1) / kRows, s.tiles);
-  spmm_rows_kernel<L, VEC, V><<<grid, ppnp::kBlock, 0, stream>>>(
+  spmm_rows_kernel<L, VEC, V, S><<<grid, ppnp::kBlock, 0, stream>>>(
       row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz);
 }
 
-// The shapes choose_shape gives: V = 1 for 8 and 16 lanes; for 32 lanes
-// V * VEC <= 8.
+// The shapes choose_shape gives without straddling: V = 1 for 8 and 16
+// lanes; for 32 lanes V * VEC <= 8.
 template <int VEC>
 void launch_vec(const Shape& s, const int* row_ptr, const int* col,
                 const float* w_g, const float* h, const float* init,
@@ -259,24 +301,26 @@ void launch_vec(const Shape& s, const int* row_ptr, const int* col,
 #undef PPNP_LAUNCH
 }
 
+// Straddling slots come only in tiles of 32 lanes, one slot a lane.
 void launch_shape(const Shape& s, const int* row_ptr, const int* col,
                   const float* w_g, const float* h, const float* init,
                   float* out, int n_rows, int c, int cg, int nnz,
                   cudaStream_t stream) {
+#define PPNP_ARGS s, row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz, stream
   switch (s.vec) {
     case 4:
-      launch_vec<4>(s, row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz,
-                    stream);
+      s.straddle ? launch<32, 4, 1, true>(PPNP_ARGS)
+                 : launch_vec<4>(PPNP_ARGS);
       break;
     case 2:
-      launch_vec<2>(s, row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz,
-                    stream);
+      s.straddle ? launch<32, 2, 1, true>(PPNP_ARGS)
+                 : launch_vec<2>(PPNP_ARGS);
       break;
     default:
-      launch_vec<1>(s, row_ptr, col, w_g, h, init, out, n_rows, c, cg, nnz,
-                    stream);
+      launch_vec<1>(PPNP_ARGS);
       break;
   }
+#undef PPNP_ARGS
 }
 
 int spmm(const int* row_ptr, const int* col, const float* w_g,
@@ -313,4 +357,19 @@ extern "C" int ppnp_grouped_spmm_csr(const int* row_ptr, const int* col,
                                      int device, void* stream) {
   return spmm(row_ptr, col, w_g, h, init, out, n_rows, groups, cg, nnz,
               device, stream);
+}
+
+// The launch shape ppnp_grouped_spmm_csr takes for these widths and
+// operands, into shape[0..4]: lanes, VEC, V, column tiles, and 1 where
+// slots straddle two groups (else 0). Launches nothing; returns 0.
+extern "C" int ppnp_grouped_spmm_shape(int n_rows, int groups, int cg,
+                                        const float* h, const float* init,
+                                        int* shape) {
+  const Shape s = choose_shape(n_rows, groups * cg, cg, h, init);
+  shape[0] = s.lanes;
+  shape[1] = s.vec;
+  shape[2] = s.v;
+  shape[3] = s.tiles;
+  shape[4] = s.straddle ? 1 : 0;
+  return 0;
 }

@@ -46,7 +46,9 @@ _ENTRY = {
     # the grouped kernel row_ptr, col, w_g, h, init, out; n_rows, groups,
     # cg, nnz, device; stream
     "spmm": {"ppnp_spmm_csr": [_P] * 6 + [_I] * 3 + [_P],
-             "ppnp_grouped_spmm_csr": [_P] * 6 + [_I] * 5 + [_P]},
+             "ppnp_grouped_spmm_csr": [_P] * 6 + [_I] * 5 + [_P],
+             # n_rows, groups, cg; h, init, shape (5 ints out); returns 0
+             "ppnp_grouped_spmm_shape": [_I] * 3 + [_P] * 3},
     "fused": {"ppnp_appnp_fused": _FUSED_ARGS,
               "ppnp_appnp_adjoint": _FUSED_ARGS},
     "masks": {

@@ -26,12 +26,22 @@ the same G planes in Aᵀ's order for the backward. K2's launches count as
 One CUDA kernel serves K1 (G = 1) and K2. A group of 8, 16 or 32 lanes
 owns a row and a tile of its columns, keeps register accumulators for
 the columns it owns and walks the row's edges once (edges outer, columns
-inner), with float4 / float2 gathers where the widths allow. The launch
-shape is chosen inside the C entry points from the row count and the
-widths; nothing here selects it. Each output element adds its edges in
-CSR order from ``init`` (or 0) with ``fmaf``, whatever the shape, so
-every launch gives the same bits and each K2 column is bit-equal to a K1
-launch on that group's slice with that group's plane.
+inner), with float4 / float2 gathers where the widths allow. Where a row
+takes several passes (G·cg > 256) the vector width need only divide G·cg
+and the operands' alignment, and a vector slot may straddle two groups
+(cg = 15 at G = 100 gathers float4), its lane then reading both groups'
+plane words. The launch shape is chosen inside the C entry points from
+the row count and the widths; nothing here selects it. Each output
+element adds its edges in CSR order from ``init`` (or 0) with ``fmaf``,
+whatever the shape, so every launch gives the same bits and each K2
+column is bit-equal to a K1 launch on that group's slice with that
+group's plane.
+
+``K2_SHAPES`` counts K2's launches by (counter, vector width, whether
+slots straddle groups), with the shape the C side reports
+(``grouped_launch_shape``): ``("spmm_grouped", 4, True)`` is a forward
+launch of float4 slots across group boundaries, ``(..., 1, False)`` one
+of scalar slots.
 
 ``spmm_csr`` and ``spmm_csr_grouped`` take the plain version only for
 tensors on the CPU. For CUDA tensors they launch the kernel or raise; they
@@ -40,7 +50,9 @@ never fall back.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from collections import Counter
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,7 +61,24 @@ from ppnp_tpu_torch.ops.sparse import CsrMatrix
 
 __all__ = ["spmm_csr", "spmm_csr_plain", "spmm_csr_bwd", "spmm_grad",
            "spmm_csr_grouped", "spmm_csr_grouped_plain",
-           "spmm_csr_grouped_bwd", "spmm_grad_grouped"]
+           "spmm_csr_grouped_bwd", "spmm_grad_grouped", "LaunchShape",
+           "grouped_launch_shape", "K2_SHAPES"]
+
+
+class LaunchShape(NamedTuple):
+    """K2's launch shape: lanes a row, floats a vector slot, slots a lane,
+    column tiles, and whether slots straddle two groups."""
+    lanes: int
+    vec: int
+    v: int
+    tiles: int
+    straddles: bool
+
+
+# (counter, vector width, straddles) -> K2 launches counted there
+K2_SHAPES: Counter = Counter()
+# (n_rows, groups, cg, h's and init's address mod 16) -> the C side's shape
+_SHAPES: Dict[Tuple, LaunchShape] = {}
 
 
 def spmm_csr_plain(a: CsrMatrix, h: torch.Tensor,
@@ -224,7 +253,29 @@ def _spmm_grouped(a: CsrMatrix, h: torch.Tensor, w_g: torch.Tensor,
         h.device.index or 0, torch.cuda.current_stream(h.device).cuda_stream)
     build.check_error(lib, err, "spmm_csr_grouped launch")
     build.LAUNCHES[counter] += 1
+    shape = grouped_launch_shape(a.n_rows, groups, c // groups, h, init)
+    K2_SHAPES[(counter, shape.vec, shape.straddles)] += 1
     return out
+
+
+def grouped_launch_shape(n_rows: int, groups: int, cg: int,
+                         h: torch.Tensor,
+                         init: Optional[torch.Tensor] = None
+                         ) -> LaunchShape:
+    """The shape K2 launches with over ``n_rows`` rows, ``groups`` groups
+    of ``cg`` columns and CUDA operands ``h`` and ``init``, as the C side
+    chooses it (asked once per rows, widths and the operands' alignment).
+    """
+    key = (n_rows, groups, cg, h.data_ptr() % 16,
+           None if init is None else init.data_ptr() % 16)
+    shape = _SHAPES.get(key)
+    if shape is None:
+        out = (ctypes.c_int * 5)()
+        build.load_library("spmm").ppnp_grouped_spmm_shape(
+            n_rows, groups, cg, h.data_ptr(),
+            None if init is None else init.data_ptr(), ctypes.addressof(out))
+        shape = _SHAPES[key] = LaunchShape(*out[:4], bool(out[4]))
+    return shape
 
 
 class _SpmmGradGrouped(torch.autograd.Function):

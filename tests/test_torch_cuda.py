@@ -407,19 +407,51 @@ def test_dropout_masks_bit_equal_to_the_cpu(dev, groups, shape):
         assert torch.equal(want[g], dropout_mask_plain(keys[g], shape, 128))
 
 
-@pytest.mark.parametrize("groups", [1, 3, 10])
-@pytest.mark.parametrize("cg", [5, 15, 64])
+# (G, cg, VEC, straddles): every pairing of G in {1, 3, 10} with cg in
+# {5, 15, 64}; rows of one pass (G·cg <= 256) that keep their shape at odd
+# cg (cg = 15 at G = 4, cg = 5 at G = 4, cg = 3 at G = 8); then rows of
+# several passes whose slots straddle two groups: float4 at cg = 15 (G =
+# 20, and the sweep's G = 100: 1,500 lanes) and cg = 5, float2 where
+# G·cg is not a multiple of 4 (G = 18) and at cg = 3 (below 4 columns no
+# float4 slot). VEC as the C side must choose it.
+GROUPED = [(1, 5, 1, False), (3, 5, 1, False), (10, 5, 1, False),
+           (1, 15, 1, False), (3, 15, 1, False), (10, 15, 1, False),
+           (1, 64, 4, False), (3, 64, 4, False), (10, 64, 4, False),
+           (4, 15, 1, False), (4, 5, 1, False), (8, 3, 1, False),
+           (20, 15, 4, True), (100, 15, 4, True), (60, 5, 4, True),
+           (18, 15, 2, True), (100, 3, 2, True)]
+
+
+def _k2_shape_count(counter, vec, straddles):
+    from ppnp_tpu_torch.kernels.spmm import K2_SHAPES
+    return K2_SHAPES[(counter, vec, straddles)]
+
+
+def _grouped_equal_to_k1(csr, h, planes, init, out, cg):
+    """Each column block of ``out`` bit-equal to a K1 launch on that
+    group's slice of ``h`` (and ``init``) with that group's plane."""
+    for g in range(planes.shape[0]):
+        cols = slice(g * cg, (g + 1) * cg)
+        ref = spmm_csr(csr, h[:, cols].contiguous(), planes[g],
+                       None if init is None else init[:, cols].contiguous())
+        assert torch.equal(out[:, cols], ref)
+
+
+@pytest.mark.parametrize("groups,cg,vec,straddles", GROUPED,
+                         ids=[f"{cg}-{g}" for g, cg, _, _ in GROUPED])
 @pytest.mark.parametrize("with_init", [False, True])
 @pytest.mark.parametrize("structure", ["hubs", "lengths"])
 @pytest.mark.parametrize("n_rows", [700, 17000])
-def test_grouped_kernel_bit_equal_to_k1_launches(dev, groups, cg,
-                                                 with_init, structure,
-                                                 n_rows):
+def test_grouped_kernel_bit_equal_to_k1_launches(dev, groups, cg, vec,
+                                                 straddles, with_init,
+                                                 structure, n_rows):
     """K2 over G planes: each column block bit-equal to a K1 launch on
     that group's slice with that group's plane, within the tolerance of
     the plain version, the same bits when launched twice; one launch
-    counted per call."""
-    from ppnp_tpu_torch.kernels.spmm import (spmm_csr_grouped,
+    counted per call, under the vector width and straddling the C side
+    chose."""
+    from ppnp_tpu_torch.kernels.spmm import (grouped_launch_shape,
+                                             spmm_csr_grouped,
                                              spmm_csr_grouped_plain)
     a = _structure((n_rows, 500, 0.02 * 700 / n_rows), groups * cg,
                    structure)
@@ -431,21 +463,54 @@ def test_grouped_kernel_bit_equal_to_k1_launches(dev, groups, cg,
     planes = csr.val * torch.rand(groups, csr.nnz, device=dev,
                                   generator=gen)
     before = dict(build.LAUNCHES)
+    shapes = _k2_shape_count("spmm_grouped", vec, straddles)
     out = _twice_equal(lambda: spmm_csr_grouped(csr, h, planes, init))
     assert build.LAUNCHES["spmm_grouped"] == before["spmm_grouped"] + 2
+    assert _k2_shape_count("spmm_grouped", vec, straddles) == shapes + 2
+    shape = grouped_launch_shape(n_rows, groups, cg, h, init)
+    assert (shape.vec, shape.straddles) == (vec, straddles)
     torch.testing.assert_close(
         out, spmm_csr_grouped_plain(csr, h, planes, init), **TOL)
-    for g in range(groups):
-        cols = slice(g * cg, (g + 1) * cg)
-        ref = spmm_csr(csr, h[:, cols].contiguous(), planes[g],
-                       None if init is None else init[:, cols].contiguous())
-        assert torch.equal(out[:, cols], ref)
+    _grouped_equal_to_k1(csr, h, planes, init, out, cg)
 
 
-@pytest.mark.parametrize("groups,cg", [(3, 5), (10, 64)])
-def test_grouped_backward_matches_plain(dev, groups, cg):
+@pytest.mark.parametrize("offset,vec", [(1, 1), (2, 2)])
+def test_grouped_kernel_on_a_misaligned_view(dev, offset, vec):
+    """K2 at the sweep's 1,500 lanes (G = 100, cg = 15) on a contiguous
+    view of H that starts ``offset`` floats into its storage: slots fall
+    back to what the address allows (float at 4 bytes, float2 at 8) and
+    are counted so; the same bits as on an aligned copy and as per-group
+    K1 launches."""
+    from ppnp_tpu_torch.kernels.spmm import spmm_csr_grouped
+    groups, cg, n_rows = 100, 15, 17000
+    a = _matrix(n_rows, 500, 0.0008, seed=offset)
+    csr = csr_from_scipy(a, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(offset)
+    buf = torch.randn(offset + 500 * groups * cg, device=dev, generator=gen)
+    h = buf[offset:].view(500, groups * cg)
+    assert h.is_contiguous() and h.data_ptr() % 16 == 4 * offset
+    init = torch.randn(n_rows, groups * cg, device=dev, generator=gen)
+    planes = csr.val * torch.rand(groups, csr.nnz, device=dev,
+                                  generator=gen)
+    straddles = vec > 1
+    shapes = _k2_shape_count("spmm_grouped", vec, straddles)
+    out = _twice_equal(lambda: spmm_csr_grouped(csr, h, planes, init))
+    assert _k2_shape_count("spmm_grouped", vec, straddles) == shapes + 2
+    aligned = _k2_shape_count("spmm_grouped", 4, True)
+    assert torch.equal(out, spmm_csr_grouped(csr, h.clone(), planes, init))
+    assert _k2_shape_count("spmm_grouped", 4, True) == aligned + 1
+    _grouped_equal_to_k1(csr, h, planes, init, out, cg)
+
+
+@pytest.mark.parametrize("groups,cg,vec,straddles",
+                         [(3, 5, 1, False), (10, 64, 4, False),
+                          (100, 15, 4, True)],
+                         ids=["3-5", "10-64", "100-15"])
+def test_grouped_backward_matches_plain(dev, groups, cg, vec, straddles):
     """``spmm_grad_grouped``: the backward is K2 on the CSR of Aᵀ (rows of
-    a rectangular Xᵀ, hub and empty rows), counted as backward launches."""
+    a rectangular Xᵀ, hub and empty rows), counted as backward launches
+    under the vector width and straddling the C side chose; at the
+    sweep's shape each column block bit-equal to a K1 launch."""
     from ppnp_tpu_torch.kernels.spmm import (spmm_csr_grouped_plain,
                                              spmm_grad_grouped)
     a = _matrix(300, 900, 0.02, seed=cg, hubs=True)
@@ -458,11 +523,15 @@ def test_grouped_backward_matches_plain(dev, groups, cg):
                     requires_grad=True)
     g = torch.randn(300, groups * cg, device=dev, generator=gen)
     before = build.LAUNCHES["spmm_grouped_bwd"]
+    shapes = _k2_shape_count("spmm_grouped_bwd", vec, straddles)
     (spmm_grad_grouped(csr, csr_t, h, planes, planes_t) * g).sum().backward()
     assert build.LAUNCHES["spmm_grouped_bwd"] == before + 1
+    assert _k2_shape_count("spmm_grouped_bwd", vec, straddles) == shapes + 1
     torch.cuda.synchronize()
     torch.testing.assert_close(
         h.grad, spmm_csr_grouped_plain(csr_t, g, planes_t), **TOL)
+    if straddles:
+        _grouped_equal_to_k1(csr_t, g, planes_t, None, h.grad, cg)
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
