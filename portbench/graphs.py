@@ -8,7 +8,8 @@ graph whatever later changes are made to the program:
   ``make_attributed_sbm``, the MS Academic surrogate at the PPNP paper's
   published statistics (the real ``.npz`` is not in the repository);
 - ``banded``: ``scripts/blocked_train_torch.py``'s
-  ``make_banded_classified``, the 500 k-node banded homophilous graph.
+  ``make_banded_classified``, the 500 k-node banded homophilous graph,
+  its matrices made by PyTorch on the device the caller names.
 
 Each returns the raw ``(adj, attr, labels)``: the benchmark hands copies
 of the same arrays to the program and to the reference.
@@ -96,40 +97,61 @@ def attributed_sbm(n_nodes: int, n_classes: int, n_features: int,
 
 
 def banded(n_nodes: int, n_classes: int, n_features: int, n_edges: int,
-           *, bandwidth: int, nnz_per_row: int, seed: int) -> RawGraph:
+           *, bandwidth: int, nnz_per_row: int, seed: int,
+           device="cpu") -> RawGraph:
+    """``make_banded_classified``'s graph: its numpy draws, in its order,
+    turned into its matrices by PyTorch on ``device`` (scipy's sparse
+    steps take half a minute at ten million nodes): the symmetric 0/1
+    pattern without the diagonal, and X with repeated words summed, both
+    in canonical CSR (rows, then columns in order), as scipy leaves
+    them."""
+    import torch
+
     n = n_nodes
     rng = np.random.default_rng(seed)
     dst = rng.integers(0, n, n_edges)
     off = (rng.standard_normal(n_edges) * bandwidth).astype(np.int64)
     src = np.clip(dst + off, 0, n - 1)
-    a = sp.coo_matrix((np.ones(n_edges, np.float32), (dst, src)),
-                      shape=(n, n)).tocsr()
-    a = a.maximum(a.T)
-    a.setdiag(0)
-    a.eliminate_zeros()
-    a.data[:] = 1.0
+
+    def csr(keys, n_cols, data):
+        rows, cols = keys // n_cols, keys % n_cols
+        indptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
+        indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+        return sp.csr_matrix(
+            (data, cols.to(torch.int32).cpu().numpy(),
+             indptr.to(torch.int32).cpu().numpy()), shape=(n, n_cols))
+
+    d = torch.from_numpy(dst).to(device)
+    s = torch.from_numpy(src).to(device)
+    off_diag = d != s
+    d, s = d[off_diag], s[off_diag]
+    keys = torch.unique(torch.cat([d * n + s, s * n + d]))
+    del d, s
+    adj = csr(keys, n, np.ones(len(keys), np.float32))
+    del keys
 
     labels = (np.arange(n) * n_classes // n).astype(np.int32)
     block = n_features // n_classes
-    rows = np.repeat(np.arange(n), nnz_per_row)
     n_own = int(nnz_per_row * 0.6)
-    own = (labels[:, None] * block
-           + rng.integers(0, block, (n, n_own))).reshape(-1)
-    rand = rng.integers(0, n_features, (n, nnz_per_row - n_own)).reshape(-1)
-    cols = np.concatenate(
-        [own.reshape(n, n_own), rand.reshape(n, nnz_per_row - n_own)],
-        axis=1).reshape(-1)
-    attr = sp.coo_matrix((np.ones(len(rows), np.float32), (rows, cols)),
-                         shape=(n, n_features)).tocsr()
-    attr.sum_duplicates()
-    return RawGraph(a.tocsr(), attr, labels)
+    own = labels[:, None] * block + rng.integers(0, block, (n, n_own))
+    rand = rng.integers(0, n_features, (n, nnz_per_row - n_own))
+    cols = torch.from_numpy(np.concatenate([own, rand], axis=1)).to(device)
+    rows = torch.arange(n, device=device)[:, None]
+    keys, counts = torch.unique(rows * n_features + cols,
+                                return_counts=True)
+    attr = csr(keys, n_features, counts.to(torch.float32).cpu().numpy())
+    return RawGraph(adj, attr, labels)
 
 
 GENERATORS = {"attributed_sbm": attributed_sbm, "banded": banded}
 
 
-def make_graph(graph_cfg: dict) -> RawGraph:
+def make_graph(graph_cfg: dict, device="cpu") -> RawGraph:
     """The graph a configuration's ``graph`` group describes: its
-    ``generator`` and that generator's keyword arguments."""
+    ``generator`` and that generator's keyword arguments. ``device``
+    turns ``banded``'s draws into matrices there."""
     args = dict(graph_cfg)
-    return GENERATORS[args.pop("generator")](**args)
+    gen = args.pop("generator")
+    if gen == "banded":
+        args["device"] = device
+    return GENERATORS[gen](**args)

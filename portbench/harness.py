@@ -11,6 +11,13 @@ The entry a cell drives is the traffic file's ``entry``:
   ``train.get_predictions`` over the whole graph, with the
   ``weight_sets`` served weight sets (drawn from the seed) in turn.
 
+A traffic file with ``"propagation": "sharded"`` builds the program's
+row-sharded propagator (``builders.build_propagator``) over the cell's
+``chips`` ranks, one process a card (``ranks.py``): every rank runs the
+same call on its rows, rank 0 decides where the window ends and the
+others end it at the same epoch boundary (``_RankWindow``), and rank 0
+reads every rank's traced segment and runs the reference.
+
 A training call is one object from set-up to the end: its first
 ``warmup`` epochs are set-up (the first three are the ones the reference
 follows), the window runs from the epoch boundary after them to the
@@ -34,14 +41,12 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench import counts, graphs, reference
-from portbench.spec import Bench, kind_of
+from portbench import counts, graphs, rankreads, reference
+from portbench.spec import BANNED, Bench, banned_modules, kind_of
 from portbench.tracing import Session, Trace
 
-__all__ = ["run_cell", "Run", "WindowClosed", "BANNED"]
+__all__ = ["run_cell", "Run", "WindowClosed", "BANNED", "banned_modules"]
 
-# top-level modules that must not be loaded in a run of the port
-BANNED = ("jax", "jaxlib", "flax", "ppnp_tpu")
 _LEAD = 2  # traced boundaries before the read segment opens
 
 
@@ -53,13 +58,19 @@ class WindowClosed(Exception):
 class Run:
     """What a per-layer reader reads: the traced segment of ``units``
     epochs or requests, the cell's kind, its shapes, and the time of one
-    unit over the measured window (profiler off)."""
+    unit over the measured window (profiler off). On several cards
+    ``trace`` is rank 0's, ``traces`` every rank's segment (the same
+    epochs) and ``shards`` each rank's own shapes; ``shapes`` are the
+    whole graph's."""
     kind: str
     trace: Trace
     units: int
     step_s: float
     shapes: counts.Shapes
     propagate_spans: tuple = ("ppnp/propagate", "ppnp/grouped_propagate")
+    world: int = 1
+    traces: tuple = ()
+    shards: tuple = ()
 
 
 class _Window:
@@ -88,7 +99,7 @@ class _Window:
                 self.phase = "window"
         elif self.phase == "window":
             self.stamps.append(now)
-            if now - self.stamps[0] >= self.seconds:
+            if self._closes(int(row["epoch"]), now):
                 if not self.trace_units:
                     raise WindowClosed
                 self.session = Session()
@@ -104,9 +115,40 @@ class _Window:
                 self.session.close_window()
                 raise WindowClosed
 
+    def _closes(self, epoch: int, now: float) -> bool:
+        """Whether the window closes at this boundary."""
+        return now - self.stamps[0] >= self.seconds
+
     @property
     def t0(self) -> float:
         return self.stamps[0]
+
+
+class _RankWindow(_Window):
+    """The window of one rank of several: rank 0, at its first boundary
+    at or after ``seconds``, publishes the next epoch as the last one
+    (under ``Group.window_key``), and every rank closes at that epoch's
+    boundary. Each epoch holds collectives over every rank, so no rank
+    can end epoch e + 1 before rank 0 has ended epoch e and published:
+    a rank reads the store at its boundaries, never the device."""
+
+    def __init__(self, *args, group):
+        super().__init__(*args)
+        self.group, self.key = group, group.window_key()
+        self.stop: Optional[int] = None
+
+    def _closes(self, epoch: int, now: float) -> bool:
+        store = self.group.store
+        if self.stop is None:
+            if self.group.rank == 0 and super()._closes(epoch, now):
+                self.stop = epoch + 1
+                store.set(self.key, str(self.stop))
+            elif self.group.rank and store.check([self.key]):
+                self.stop = int(store.get(self.key))
+        if self.stop is not None and epoch > self.stop:
+            raise RuntimeError(f"rank {self.group.rank} passed the window's "
+                               f"last epoch {self.stop}")
+        return epoch == self.stop
 
 
 @contextlib.contextmanager
@@ -167,7 +209,14 @@ def _program_inputs(raw: graphs.RawGraph, cfg: Dict, traffic: Dict, dev):
     if cfg["standardize"]:
         graph = graph.standardize()
     m = cfg["model"]
-    if traffic["backend"] == "blocked":
+    if traffic.get("propagation") == "sharded":
+        # the graph in its own order: the CLI's --shard-reorder none
+        prop = build_propagator(RunConfig(
+            propagation="sharded", backend=traffic["backend"],
+            exchange=traffic["exchange"], n_shards=traffic["n_shards"],
+            alpha=m["alpha"], niter=m["niter"], drop_prob=m["drop_prob"]),
+            graph, dev)
+    elif traffic["backend"] == "blocked":
         blocked = build_blocked_csr(
             calc_A_hat(graph.adj_matrix),
             rows_per_block=traffic["rows_per_block"],
@@ -195,7 +244,8 @@ def _train_kwargs(cfg: Dict, split_seed: int, window: _Window) -> Dict:
 
 
 def _drive_training(kind: str, cfg: Dict, traffic: Dict, graph, prop, x,
-                    seeds, seconds: float, trace: bool, sample: List[int]):
+                    seeds, seconds: float, trace: bool, sample: List[int],
+                    group=None):
     """Run the one training call; returns (window, observed numbers by
     model index in ``sample``)."""
     from ppnp_tpu_torch import multiseed, train
@@ -222,8 +272,10 @@ def _drive_training(kind: str, cfg: Dict, traffic: Dict, graph, prop, x,
     if warmup < 4:
         raise ValueError("warmup_epochs must cover the three steps that "
                          "the reference follows")
-    window = _Window(warmup, seconds,
-                     int(traffic["trace_epochs"]) if trace else 0, capture)
+    args = (warmup, seconds, int(traffic["trace_epochs"]) if trace else 0,
+            capture)
+    window = (_Window(*args) if group is None
+              else _RankWindow(*args, group=group))
     kw = _train_kwargs(cfg, split_seed, window)
     module = train if kind == "train" else multiseed
     with _observe(module, holder, sel):
@@ -337,15 +389,30 @@ def _drive_serving(cfg: Dict, traffic: Dict, graph, prop, x, seed: int,
     return lat, t0, span, sample, (w1.cpu(), w2.cpu()), failed, traced
 
 
-def _shapes(cfg: Dict, graph, prop, x, groups: int) -> counts.Shapes:
+def _shapes(cfg: Dict, traffic: Dict, graph, prop, x, groups: int
+            ) -> counts.Shapes:
     m = cfg["model"]
     n, f = graph.attr_matrix.shape
     sparse = cfg["x_format"] == "sparse"
-    nnz = prop.blocked.nnz if prop.blocked is not None else prop.csr.nnz
+    if traffic.get("propagation") == "sharded":
+        nnz = prop.graph.nnz  # the whole Â; x holds this rank's rows
+        sparse_nnz = 0
+    else:
+        nnz = prop.blocked.nnz if prop.blocked is not None else prop.csr.nnz
+        sparse_nnz = int(x.csr.nnz) if sparse else 0
     return counts.Shapes(
-        n=n, nnz=int(nnz), f=f, nnz_x=int(x.csr.nnz) if sparse else 0,
+        n=n, nnz=int(nnz), f=f, nnz_x=sparse_nnz,
         hidden=max(m["hidden"]), c=int(np.max(graph.labels)) + 1,
         niter=m["niter"], x_sparse=sparse, groups=groups)
+
+
+def _shard_shapes(shapes: counts.Shapes, prop) -> counts.Shapes:
+    """This rank's own part of a row-sharded cell: its rows and the
+    entries of its interior and boundary operators."""
+    csr = prop.csr
+    return dataclasses.replace(
+        shapes, n=prop.graph.shard_rows,
+        nnz=int(csr.interior.nnz + csr.boundary.nnz))
 
 
 def _relative(got, want) -> float:
@@ -399,19 +466,38 @@ def reference_problem(raw, cfg, traffic, device):
         raw.adj, raw.attr, raw.labels, standardize=cfg["standardize"],
         arm=traffic["edge_ids"], x_format=cfg["x_format"],
         rows_per_block=traffic.get("rows_per_block", 0),
-        reorder=traffic.get("reorder"), device=device)
+        reorder=traffic.get("reorder"),
+        n_shards=traffic.get("n_shards", 0), device=device)
+
+
+def _free_program(dev) -> None:
+    """Let go of the program's state once its tensors are dropped: the
+    process group (a sharded cell's), and the card's cached blocks."""
+    import torch.distributed as dist
+    gc.collect()
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
-             trace: bool, *, t_start: float, device=None):
+             trace: bool, *, t_start: float, device=None, group=None):
     """One run; returns (the result line's object, the lines for
     standard error, which end with the numbers compared). ``t_start`` is
-    the ``perf_counter`` reading at process start."""
+    the ``perf_counter`` reading at process start (at the launcher's
+    start on several cards: ``perf_counter`` is CLOCK_MONOTONIC, one
+    clock for every process of the machine). With ``group``
+    (``ranks.Group``) this process is one rank of a sharded cell on
+    ``device``; a rank other than 0 returns (None, its lines)."""
     cell = bench.cell(workload)
     cfg = bench.config(cell["config"])
     traffic = bench.traffic(cell["traffic"])
     limits = bench.limits(workload)
     kind = kind_of(traffic)
+    if group is not None and kind != "train":
+        raise ValueError(f"a {kind} cell runs on one card; only train_model "
+                         "cells run over several ranks")
     dev = torch.device(device or "cuda")
     groups = int(traffic.get("groups", 1))
     seeds = cell_seeds(seed, groups)
@@ -422,15 +508,25 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
         from ppnp_tpu_torch.kernels import build
         build.build_kernels()
         torch.zeros(1, device=dev)
-    raw = graphs.make_graph(cfg["graph"])
+    t_graph = time.perf_counter()
+    raw = graphs.make_graph(cfg["graph"], device=dev)
+    if dev.type == "cuda":  # the peak is the program's
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_inputs = time.perf_counter()
     graph, prop, x = _program_inputs(raw, cfg, traffic, dev)
-    shapes = _shapes(cfg, graph, prop, x, groups)
-    stderr: List[str] = []
+    shapes = _shapes(cfg, traffic, graph, prop, x, groups)
+    shard = _shard_shapes(shapes, prop) if group is not None else None
+    stderr: List[str] = [
+        f"set-up: {t_graph - t_start:.3f} s to the graph, graph "
+        f"{t_inputs - t_graph:.3f} s, program inputs "
+        f"{time.perf_counter() - t_inputs:.3f} s"]
 
     traced: Optional[Trace] = None
     if kind in ("train", "sweep"):
         window, observed = _drive_training(kind, cfg, traffic, graph, prop,
-                                           x, seeds, seconds, trace, sample)
+                                           x, seeds, seconds, trace, sample,
+                                           group)
         if window.session is not None:
             traced = window.session.finish()
         t0 = window.t0
@@ -468,12 +564,28 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
 
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
+    traces, shards, world = (traced,), (shard,), 1
+    if group is not None:
+        if group.rank:
+            group.post({"trace": traced, "peak": int(peak), "shard": shard})
+            del graph, prop, x
+            _free_program(dev)
+            group.freed()
+            return None, stderr
+        peers = group.collect()
+        world = group.world
+        peaks = [int(peak)] + [q["peak"] for q in peers]
+        peak = max(peaks)
+        traces += tuple(q["trace"] for q in peers)
+        shards += tuple(q["shard"] for q in peers)
+        stderr.append(f"memory peak by rank: {peaks}")
     result: Dict[str, Any] = {"correct": False, "attempted": attempted,
                               "failed": failed}
     if trace:
         run = Run(kind=kind, trace=traced, units=int(
             traffic["trace_epochs" if kind != "serve" else "trace_requests"]),
-            step_s=unit_s, shapes=shapes)
+            step_s=unit_s, shapes=shapes, world=world, traces=traces,
+            shards=shards)
         metrics = {}
         for m in bench.per_layer(workload):
             value = bench.reader(m["name"])(run)
@@ -489,18 +601,32 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
         "platform": "gpu" if dev.type == "cuda" else dev.type,
         "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                  else "cpu"),
-        "count": 1, "memory_peak_bytes": int(peak)}
+        "count": world, "memory_peak_bytes": int(peak)}
     if trace:
         stderr.append("card: " + _power_limit())
-        result["device"]["busy_s"] = traced.busy_s()
+        busy = [t.busy_s() for t in traces]
+        result["device"]["busy_s"] = float(np.mean(busy))
         result["device"]["window_s"] = traced.window_s
-        result["breakdown"] = traced.breakdown()
+        pacing = rankreads.pacing(traces) or 0
+        result["breakdown"] = traces[pacing].breakdown()
+        if group is not None:
+            stderr.append(
+                f"breakdown of rank {pacing}, the pacing rank (busiest "
+                "outside NCCL kernels); busy share by rank (outside NCCL "
+                "kernels): " + ", ".join(
+                    f"{b / t.window_s:.4f} "
+                    f"({rankreads.without_nccl(t).busy_s() / t.window_s:.4f})"
+                    for b, t in zip(busy, traces)))
+            stderr += [f"rank {r}, device ms an epoch: " + "; ".join(
+                f"{name[:48]} {1e3 * sec / run.units:.3f}"
+                for name, sec in t.breakdown(top=8)["device_ops"])
+                for r, t in enumerate(traces)]
 
     # the program's state goes before the reference runs
     del graph, prop, x
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    _free_program(dev)
+    if group is not None:
+        group.wait_freed()
     t_ref = time.perf_counter()
     prob = reference_problem(raw, cfg, traffic, dev)
     if kind == "serve":
@@ -534,8 +660,3 @@ def _power_limit() -> str:
         return f"power limit not read ({exc!r})"
     return out.stdout.strip() or out.stderr.strip()
 
-
-def banned_modules() -> List[str]:
-    """The banned top-level modules loaded in this process."""
-    return sorted({name.split(".")[0] for name in sys.modules}
-                  & set(BANNED))

@@ -6,8 +6,9 @@ or, for the control, in TF32: every product's operands rounded to TF32's
 backward. It imports nothing of ``ppnp_tpu_torch``: from the raw graph
 that the benchmark hands it, it works out again everything the program
 derives, namely the standardized graph, Â, X's L1 normalization, the
-splits, the initial weights, the reverse Cuthill-McKee order and the
-blocked plan, and every dropout mask from the port's key schedule.
+splits, the initial weights, the reverse Cuthill-McKee order, the
+blocked plan and the row-sharded plan (``shardplan.py``), and every
+dropout mask from the port's key schedule.
 
 The key schedule and the masks are frozen copies of the port's
 arithmetic (``ops/hashrng.py``, ``ops/prng.py``, ``ops/dropout.py``,
@@ -23,7 +24,9 @@ One training step, as ``train.train_model`` runs it (and
 ``multiseed.train_models`` for each seed): ``key = fold_in(key_epochs,
 e)``; ``key_mlp, key_prop = split(key)``; dropout before each of the
 two layers, ReLU between them; K steps ``H ← (1-α)·Â_drop·H + α·H⁰``
-with the mask of step k from ``split(key_prop, K)[k]``; NLL on the
+with the mask of step k from ``split(key_prop, K)[k]`` (in the sharded
+arm, of each rank's interior and boundary part from ``fold_in(fold_in(
+split(key_prop, K)[k], rank), part)``); NLL on the
 training nodes plus ``λ/2·‖W₁‖²``; one Adam step with optax's
 arithmetic; then the stopping-set eval: the eval forward (no dropout)
 with the updated weights, NLL on the stopping nodes.
@@ -32,12 +35,15 @@ with the updated weights, NLL on the stopping nodes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import warnings
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
+
+from portbench import shardplan
 
 __all__ = ["Problem", "prepare", "train_steps", "eval_logp",
            "glorot_init", "prng_key", "split", "fold_in"]
@@ -48,6 +54,7 @@ _ROT_B = (17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
 _KNOWN_UNKNOWN_SEED = 1707092819
 _EDGE_CHUNK = 1 << 22   # entries per gather in the sparse product
+_MASK_CHUNK = 1 << 25   # entries (edges, or hidden units) a mask call
 
 
 # ---------------------------------------------------------------- keys --
@@ -177,6 +184,56 @@ class _SpMM(torch.autograd.Function):
         return _spmm(cols, rows, val, g, ctx.n_in), None, None, None, None
 
 
+class _Csr(NamedTuple):
+    """The entries (rows, cols) of an (n_rows × n_cols) matrix in CSR
+    order, and its transpose's: the transpose's k-th entry is entry
+    ``order_t[k]``."""
+    crow: torch.Tensor
+    col: torch.Tensor
+    crow_t: torch.Tensor
+    col_t: torch.Tensor
+    order_t: torch.Tensor
+    n_rows: int
+    n_cols: int
+
+
+def _csr(rows: torch.Tensor, cols: torch.Tensor, n_rows: int,
+         n_cols: int) -> _Csr:
+    """``_Csr`` of entries already in CSR order (rows, then columns)."""
+    def crow(r, n):
+        out = torch.zeros(n + 1, dtype=torch.int64, device=r.device)
+        out[1:] = torch.cumsum(torch.bincount(r, minlength=n), 0)
+        return out
+    order_t = torch.argsort(cols * n_rows + rows)
+    return _Csr(crow(rows, n_rows), cols, crow(cols, n_cols),
+                rows[order_t], order_t, n_rows, n_cols)
+
+
+class _CsrSpMM(torch.autograd.Function):
+    """``_SpMM`` as a sparse CSR product, for the large problems: no
+    scattered adds. Differentiable in ``h`` only."""
+
+    @staticmethod
+    def forward(ctx, h, val, csr: _Csr):
+        ctx.save_for_backward(val)
+        ctx.csr = csr
+        return _sparse(csr.crow, csr.col, val, (csr.n_rows, csr.n_cols)) @ h
+
+    @staticmethod
+    def backward(ctx, g):
+        (val,), csr = ctx.saved_tensors, ctx.csr
+        a_t = _sparse(csr.crow_t, csr.col_t, val[csr.order_t],
+                      (csr.n_cols, csr.n_rows))
+        return a_t @ g.contiguous(), None, None
+
+
+def _sparse(crow, col, val, size) -> torch.Tensor:
+    with warnings.catch_warnings():  # "CSR support is in beta state"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, col, val, size,
+                                       check_invariants=False)
+
+
 def _spmm(rows, cols, val, h, n_out):
     out = h.new_zeros((n_out, h.shape[1]))
     for lo in range(0, rows.shape[0], _EDGE_CHUNK):
@@ -202,7 +259,9 @@ class _Math:
     def mm(self, a, b):
         return self.r(self.r(a) @ self.r(b))
 
-    def spmm(self, rows, cols, val, h, n_out):
+    def spmm(self, rows, cols, val, h, n_out, csr: Optional[_Csr] = None):
+        if csr is not None:
+            return self.r(_CsrSpMM.apply(self.r(h), self.r(val), csr))
         return self.r(_SpMM.apply(self.r(h), rows, cols, self.r(val), n_out))
 
 
@@ -228,6 +287,10 @@ class Problem:
     x_ids: torch.Tensor        # id-keyed masks of a sparse X
     x_format: str
     device: torch.device
+    n_shards: int = 0          # the sharded arm's ranks (a_block: 2·rank
+    #                            + part)
+    a_csr: Optional[_Csr] = None  # the sharded arm: Â and X as CSR
+    x_csr: Optional[_Csr] = None  # products, entries in CSR order
 
 
 def _standardize(adj, attr, labels):
@@ -282,21 +345,30 @@ def _blocked_plan(pr, pc, n, r):
 
 def prepare(adj, attr, labels, *, standardize: bool, arm: str,
             x_format: str, rows_per_block: int = 0,
-            reorder: Optional[str] = None, device="cpu") -> Problem:
+            reorder: Optional[str] = None, n_shards: int = 0,
+            device="cpu") -> Problem:
     """The reference's own derivation of every input of a run.
 
     ``arm`` fixes the coordinates of the edge ids: ``"rcm"`` (the CSR
-    arms, under the reverse Cuthill-McKee order) or ``"blocked"`` (row
-    blocks of ``rows_per_block``, after ``reorder``). The xla arm keys
-    its masks by edge-list slot instead, which this reference does not
-    derive."""
-    if arm not in ("rcm", "blocked"):
+    arms, under the reverse Cuthill-McKee order), ``"blocked"`` (row
+    blocks of ``rows_per_block``, after ``reorder``) or ``"sharded"``
+    (the pallas arm's interior and boundary parts of ``n_shards`` ranks,
+    in the graph's own node order). The xla arm keys its masks by
+    edge-list slot instead, which this reference does not derive."""
+    if arm not in ("rcm", "blocked", "sharded"):
         raise ValueError(f"edge ids in coordinates {arm!r}: the reference "
-                         "derives 'rcm' (pallas, fused) and 'blocked'")
+                         "derives 'rcm' (pallas, fused), 'blocked' and "
+                         "'sharded'")
+    if arm == "sharded" and (reorder is not None or n_shards < 1):
+        raise ValueError("the sharded arm's ids are derived in the graph's "
+                         "own order (reorder None), over n_shards >= 1")
     device = torch.device(device)
     labels = np.asarray(labels)
     if standardize:
         adj, attr, labels = _standardize(adj, attr, labels)
+    if arm == "sharded":
+        return _prepare_sharded(adj, attr, labels, x_format, n_shards,
+                                device)
     a_hat = _a_hat(adj)
     a = a_hat.tocoo()
     rows, cols = a.row.astype(np.int64), a.col.astype(np.int64)
@@ -333,6 +405,53 @@ def prepare(adj, attr, labels, *, standardize: bool, arm: str,
         device=device)
 
 
+def _prepare_sharded(adj, attr, labels, x_format: str, n_shards: int,
+                     device) -> Problem:
+    """``prepare`` for the sharded arm, whose graphs are large: Â's
+    entries worked out on ``device`` in CSR order (A + I with each
+    entry ``a_rc / sqrt(d_r·d_c)``, d the rows' sums, as ``_a_hat``),
+    each entry's rank, part and id (``shardplan``), and X's entries;
+    products go through ``_Csr``."""
+    a = sp.csr_matrix(adj)
+    a.sum_duplicates()
+    n = a.shape[0]
+    counts = torch.from_numpy(np.diff(a.indptr).astype(np.int64)).to(device)
+    rows = torch.repeat_interleave(torch.arange(n, device=device), counts)
+    cols = torch.from_numpy(a.indices).to(device).long()
+    vals = torch.from_numpy(a.data).to(device, torch.float64)
+    diag = torch.arange(n, device=device)
+    order = torch.argsort(torch.cat([rows, diag]) * n + torch.cat([cols, diag]))
+    rows = torch.cat([rows, diag])[order]
+    cols = torch.cat([cols, diag])[order]
+    vals = torch.cat([vals, torch.ones(n, dtype=torch.float64,
+                                       device=device)])[order]
+    del order
+    deg = torch.zeros(n, dtype=torch.float64, device=device).index_add_(
+        0, rows, vals)
+    d = 1.0 / torch.sqrt(deg)
+    a_val = d[rows] * vals * d[cols]
+    plan = shardplan.plan(rows, cols, n, n_shards)
+
+    x = sp.csr_matrix(attr, dtype=np.float64)
+    x.sum_duplicates()
+    sums = np.asarray(x.sum(axis=1)).ravel()
+    x = (sp.diags(np.where(sums > 0, 1.0 / np.maximum(sums, 1e-12), 0.0))
+         @ x).tocsr()
+    x.sort_indices()
+    xr = torch.repeat_interleave(
+        torch.arange(n, device=device),
+        torch.from_numpy(np.diff(x.indptr).astype(np.int64)).to(device))
+    xc = torch.from_numpy(x.indices).to(device).long()
+    return Problem(
+        n=n, f=x.shape[1], n_classes=int(labels.max()) + 1, labels=labels,
+        a_rows=rows, a_cols=cols, a_val=a_val, a_ids=plan.ids,
+        a_block=2 * plan.rank + plan.part, x_rows=xr, x_cols=xc,
+        x_val=torch.from_numpy(x.data).to(device),
+        x_ids=xr * max(n, x.shape[1]) + xc, x_format=x_format,
+        device=device, n_shards=n_shards,
+        a_csr=_csr(rows, cols, n, n), x_csr=_csr(xr, xc, n, x.shape[1]))
+
+
 def gen_splits(labels: np.ndarray, split: Dict[str, int], seed: int):
     """(train, stopping) node indices of the protocol: a fixed known
     pool of ``nknown`` nodes, then per class ``ntrain_per_class`` train
@@ -354,18 +473,45 @@ def gen_splits(labels: np.ndarray, split: Dict[str, int], seed: int):
 
 # ------------------------------------------------------------- forward --
 
+def _part_keys(key, n_shards: int, fault: Optional[str]) -> np.ndarray:
+    """The sharded arm's keys of one step, row ``2·rank + part``:
+    ``fold_in(fold_in(key, rank), part)``. The fault ``"rank0_key"``
+    masks rank 1's interior with rank 0's key."""
+    keys = np.stack([fold_in(fold_in(key, d), q) for d in range(n_shards)
+                     for q in (0, 1)])
+    if fault == "rank0_key" and n_shards > 1:
+        keys[2] = keys[0]
+    return keys
+
+
+def _sharded_keep(keys: np.ndarray, which: torch.Tensor, ids: torch.Tensor,
+                  keep: float) -> torch.Tensor:
+    """``_edge_keep`` under one key of ``keys`` an entry, in chunks."""
+    return torch.cat([_edge_keep((keys, which[lo:lo + _MASK_CHUNK]),
+                                 ids[lo:lo + _MASK_CHUNK], keep)
+                      for lo in range(0, ids.shape[0], _MASK_CHUNK)])
+
+
 def _propagate(p: Problem, m: _Math, h0, alpha, niter, key_prop,
-               drop: float):
+               drop: float, fault: Optional[str] = None):
     """K power-iteration steps; with ``key_prop`` each step's edges are
-    dropped by id (block b of a blocked plan keyed by ``fold_in``)."""
+    dropped by id (block b of a blocked plan keyed by ``fold_in``; the
+    sharded arm by ``_part_keys``). The fault ``"no_exchange"`` leaves
+    out the sharded arm's boundary entries, the rows an exchange
+    brings."""
     keys = split(key_prop, niter) if key_prop is not None else None
     keep = 1.0 - drop
     val = (1.0 - alpha) * p.a_val
+    cut = (p.a_block % 2 == 1 if fault == "no_exchange" and p.n_shards
+           else None)
     h = h0
     for k in range(niter):
         w = val
         if keys is not None:
-            if p.a_block is None:
+            if p.n_shards:
+                kept = _sharded_keep(_part_keys(keys[k], p.n_shards, fault),
+                                     p.a_block, p.a_ids, keep)
+            elif p.a_block is None:
                 kept = _edge_keep(keys[k], p.a_ids, keep)
             else:
                 n_blocks = int(p.a_block.max()) + 1
@@ -374,8 +520,26 @@ def _propagate(p: Problem, m: _Math, h0, alpha, niter, key_prop,
                 kept = _edge_keep((block_keys, p.a_block), p.a_ids, keep)
             w = torch.where(kept, (1.0 - alpha) * (p.a_val / keep),
                             torch.zeros_like(val))
-        h = m.spmm(p.a_rows, p.a_cols, w, h, p.n) + m.r(alpha * h0)
+        if cut is not None:
+            w = torch.where(cut, torch.zeros_like(w), w)
+        h = m.spmm(p.a_rows, p.a_cols, w, h, p.n, p.a_csr) + m.r(alpha * h0)
     return h
+
+
+def _hidden_keep(key, n: int, hid: int, keep_q: float,
+                 device) -> torch.Tensor:
+    """The (n, hid) dense dropout mask of the hidden layer, in blocks of
+    rows where it is large."""
+    block = max(1, _MASK_CHUNK // hid) if n * hid > _MASK_CHUNK else n
+    out = []
+    for lo in range(0, n, block):
+        rows = min(block, n - lo)
+        r = torch.arange(lo, lo + rows, device=device)[:, None].expand(
+            rows, hid)
+        c = torch.arange(hid, device=device)[None, :].expand(rows, hid)
+        out.append(_dense_keep(key, r.reshape(-1), c.reshape(-1), hid,
+                               keep_q).reshape(rows, hid))
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def _local_logits(p: Problem, m: _Math, w1, w2, key_mlp, drop: float):
@@ -392,12 +556,9 @@ def _local_logits(p: Problem, m: _Math, w1, w2, key_mlp, drop: float):
             kept = _dense_keep(k1, p.x_rows, p.x_cols, p.f, keep_q)
             x_val = torch.where(kept, x_val / keep_q, torch.zeros_like(x_val))
         hid = w1.shape[1]
-        r = torch.arange(p.n, device=p.device)[:, None].expand(p.n, hid)
-        c = torch.arange(hid, device=p.device)[None, :].expand(p.n, hid)
         keep_q = _quantized_keep(drop)
-        h_keep = (_dense_keep(k2, r.reshape(-1), c.reshape(-1), hid, keep_q)
-                  .reshape(p.n, hid), keep_q)
-    h = F.relu(m.spmm(p.x_rows, p.x_cols, x_val, w1, p.n))
+        h_keep = (_hidden_keep(k2, p.n, hid, keep_q, p.device), keep_q)
+    h = F.relu(m.spmm(p.x_rows, p.x_cols, x_val, w1, p.n, p.x_csr))
     if h_keep is not None:
         mask, keep_q = h_keep
         h = torch.where(mask, h / keep_q, torch.zeros_like(h))
@@ -405,14 +566,15 @@ def _local_logits(p: Problem, m: _Math, w1, w2, key_mlp, drop: float):
 
 
 def eval_logp(p: Problem, w1, w2, *, alpha: float, niter: int,
-              precision: str = "float64") -> torch.Tensor:
+              precision: str = "float64",
+              fault: Optional[str] = None) -> torch.Tensor:
     """Log-probabilities of every node, eval mode (no dropout)."""
     m = _Math(precision)
     with torch.no_grad():
         h0 = _local_logits(p, m, m.r(w1.to(p.device)), m.r(w2.to(p.device)),
                            None, 0.0)
-        return F.log_softmax(_propagate(p, m, h0, alpha, niter, None, 0.0),
-                             dim=-1).to(torch.float64)
+        return F.log_softmax(_propagate(p, m, h0, alpha, niter, None, 0.0,
+                                        fault), dim=-1).to(torch.float64)
 
 
 def train_steps(p: Problem, model: Dict, split_args: Dict[str, int], *,
@@ -426,7 +588,8 @@ def train_steps(p: Problem, model: Dict, split_args: Dict[str, int], *,
     (the first step's gradient per weight), ``params0`` and ``params``
     (the weights before the first step and after the last). ``fault`` plants
     one for the limits' upper readings: ``"half_batch"`` takes the mean
-    over half of the training nodes."""
+    over half of the training nodes; in the sharded arm ``"rank0_key"``
+    and ``"no_exchange"`` (``_propagate``)."""
     m = _Math(precision)
     hidden = list(model["hidden"])
     alpha, niter = float(model["alpha"]), int(model["niter"])
@@ -454,7 +617,7 @@ def train_steps(p: Problem, model: Dict, split_args: Dict[str, int], *,
     for e in range(n_steps):
         key_mlp, key_prop = split(fold_in(key_epochs, e))
         h0 = _local_logits(p, m, params[0], params[1], key_mlp, drop)
-        z = _propagate(p, m, h0, alpha, niter, key_prop, drop)
+        z = _propagate(p, m, h0, alpha, niter, key_prop, drop, fault)
         logp = F.log_softmax(z.index_select(0, idx), dim=-1)
         nll = -logp.gather(1, y[:, None]).sum() / len(train)
         loss = nll + (lam / 2.0) * torch.sum(params[0] ** 2)
@@ -470,7 +633,8 @@ def train_steps(p: Problem, model: Dict, split_args: Dict[str, int], *,
                 nu_q.mul_(0.999).add_(0.001 * g * g)
                 q.add_(-lr * (mu_q / c1) / (torch.sqrt(nu_q / c2) + 1e-8))
         logp = eval_logp(p, params[0].detach(), params[1].detach(),
-                         alpha=alpha, niter=niter, precision=precision)
+                         alpha=alpha, niter=niter, precision=precision,
+                         fault=fault)
         stop_losses.append(float(-logp[sidx].gather(
             1, y_stop[:, None]).mean()))
     return {"losses": losses, "stop_losses": stop_losses, "grad1": grad1,

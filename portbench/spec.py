@@ -4,8 +4,10 @@
 - a traffic mix: ``traffic/<traffic>.json``, whose ``entry`` names the
   program's function the window drives (``ENTRIES`` gives the kind of
   cell each makes) and whose ``edge_ids`` names the coordinates the
-  backend keys its edge masks by (``rcm`` or ``blocked``, which the
-  reference works out again; ``reference.prepare``);
+  backend keys its edge masks by (``rcm``, ``blocked`` or ``sharded``,
+  which the reference works out again; ``reference.prepare``); with
+  ``"propagation": "sharded"`` the call runs row-sharded over the cell's
+  ``chips`` ranks (``ranks.py``);
 - a cell's limits for ``correct``: ``limits/<workload>.json``;
 - a per-layer metric: the reader ``metrics/<name>.py``, else
   ``metrics/<name up to its first dot>.py`` (one reader serves
@@ -21,19 +23,30 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 from typing import Callable, Dict, List
 
-__all__ = ["Bench", "validate", "ENTRIES", "kind_of"]
+__all__ = ["Bench", "validate", "ENTRIES", "kind_of", "BANNED",
+           "banned_modules"]
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
 LINE = re.compile(r"^[^\t\n\r]{1,200}$")
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+# top-level modules that must not be loaded in a run of the port
+BANNED = ("jax", "jaxlib", "flax", "ppnp_tpu")
 # a traffic mix's ``entry`` -> the kind of cell it drives
 ENTRIES = {"train_model": "train", "train_models": "sweep",
            "get_predictions": "serve"}
+
+
+def banned_modules() -> List[str]:
+    """The banned top-level modules loaded in this process, compared by
+    whole top-level names."""
+    return sorted({name.split(".")[0] for name in sys.modules}
+                  & set(BANNED))
 
 
 def kind_of(traffic: Dict) -> str:
@@ -122,6 +135,8 @@ def validate(doc: Dict) -> List[str]:
              f"reduced {c['name']}")
         need(any(c["file"].startswith(p.rstrip("/") + "/")
                  for p in doc["paths"]), f"config file {c['name']}")
+    four = sum(w.get("chips") == 4 for w in doc["workloads"])
+    need(four <= max(1, len(doc["workloads"]) // 4), "four-chip cells")
     cells = set()
     for w in doc["workloads"]:
         need(set(w) == {"name", "config", "traffic", "chips", "why"},

@@ -35,7 +35,7 @@ def test_cell_as_the_driver_runs_it(card):
     assert line["device"]["busy_s"] > 0
 
 
-@pytest.mark.parametrize("workload", ["msa_sweep"])
+@pytest.mark.parametrize("workload", ["msa_sweep", "sharded4"])
 def test_control_fails_at_the_cells_size(card, workload):
     bench = Bench(tinybench.ROOT)
     limits = bench.limits(workload)

@@ -30,7 +30,8 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("name", ["reference.py", "graphs.py", "counts.py",
-                                  "tracing.py", "spec.py"])
+                                  "tracing.py", "spec.py", "shardplan.py",
+                                  "ranks.py", "rankreads.py"])
 def test_yardstick_imports_nothing_of_the_program(name):
     got = set(_imports(tinybench.PKG / name))
     assert not got & {"ppnp_tpu_torch", "ppnp_tpu", "jax", "jaxlib",

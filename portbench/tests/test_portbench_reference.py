@@ -58,6 +58,12 @@ def test_generators_are_the_programs():
     assert (b.adj != g.adj_matrix).nnz == 0
     assert (b.attr != g.attr_matrix).nnz == 0
     assert np.array_equal(b.labels, g.labels)
+    # the same arrays, not only the same matrices: canonical CSR
+    for ours, theirs in ((b.adj, g.adj_matrix), (b.attr, g.attr_matrix)):
+        theirs = theirs.tocsr()
+        for field in ("indptr", "indices", "data"):
+            assert np.array_equal(getattr(ours, field),
+                                  getattr(theirs, field))
 
 
 def test_reference_ids_and_init_are_the_programs():

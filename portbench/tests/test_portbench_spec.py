@@ -113,3 +113,11 @@ def test_discovery_of_added_files(tmp_path, mix):
     r, _ = run_cell(bench, "dummy_cell", 5, 0.2, False, t_start=0.0,
                     device="cpu")
     assert set(r["metrics"]) == {moves, "setup_s"}
+
+
+def test_four_chip_cells_within_the_rule():
+    doc = json.loads(json.dumps(DOC))
+    assert [w["chips"] for w in doc["workloads"]].count(4) == 1
+    doc["workloads"].append(dict(doc["workloads"][-1], name="second4",
+                                 traffic="other"))
+    assert "four-chip cells" in validate(doc)

@@ -1,6 +1,8 @@
 """A benchmark tree at a size a CPU test holds: the real configurations
 shrunk (a few hundred nodes, K = 3), one cell per entry and arm, the
-real metric readers, written under a temporary directory."""
+real metric readers, written under a temporary directory. A cell whose
+mix names ``n_shards`` asks for that many chips (``SHARDED``: four gloo
+ranks on the CPU)."""
 
 import json
 import shutil
@@ -29,6 +31,13 @@ CELLS = {
     "t_serve": ("sbm_wide", {"entry": "get_predictions", "backend": "fused",
                              "edge_ids": "rcm", "weight_sets": 8,
                              "warmup_requests": 2, "trace_requests": 3}),
+}
+
+SHARDED = {
+    "t_sharded": ("band", {"entry": "train_model", "backend": "pallas",
+                           "propagation": "sharded", "exchange": "alltoall",
+                           "n_shards": 4, "edge_ids": "sharded",
+                           "warmup_epochs": 4, "trace_epochs": 2}),
 }
 
 
@@ -70,12 +79,16 @@ def make(tmp, cells=CELLS, limits=None) -> Bench:
     for name, (config, traffic) in cells.items():
         (pkg / "traffic" / f"{name}.json").write_text(json.dumps(traffic))
         lim = (limits or {}).get(name) or real_limits(
-            real[ENTRIES[traffic["entry"]]])
+            "sharded4" if "n_shards" in traffic
+            else real[ENTRIES[traffic["entry"]]])
         (pkg / "limits" / f"{name}.json").write_text(json.dumps(lim))
         doc["workloads"].append({"name": name, "config": config,
-                                 "traffic": name, "chips": 1, "why": "tiny"})
+                                 "traffic": name, "why": "tiny",
+                                 "chips": traffic.get("n_shards", 1)})
     by_kind = {k: [n for n, (_, t) in cells.items()
                    if ENTRIES[t["entry"]] == k] for k in real}
+    by_kind["sharded"] = [n for n, (_, t) in cells.items()
+                          if "n_shards" in t]
     e2e = {"epoch_ms": "train", "seed_epochs_per_s": "sweep",
            "request_p95_ms": "serve"}
     # the training cells' metrics, where no shipped cell reports them:
