@@ -27,7 +27,8 @@ each rank then works out the readings of every ``world``-th seed on its
 own card; rank 0 prints them all. ``--fault-seeds k`` reads the control
 and the faults on the first k seeds only (the program's on all).
 
-The benchmark's own runs do not run this.
+It judges by the configuration's reference module (``Bench.reference``),
+as a run does. The benchmark's own runs do not run this.
 """
 
 import argparse
@@ -46,18 +47,19 @@ def readings(bench, workload: str, seed: int, device, prob=None,
     reference's problem, made here when None); with ``faults`` False
     only the reference's own run (for ``program_readings``)."""
     import torch
-    from portbench import graphs, harness, reference
+    from portbench import graphs, harness
     from portbench.spec import kind_of
     cell = bench.cell(workload)
     cfg = bench.config(cell["config"])
     traffic = bench.traffic(cell["traffic"])
+    ref_mod = bench.reference(cfg)
     kind = kind_of(traffic)
     groups = int(traffic.get("groups", 1))
     seeds = harness.cell_seeds(seed, groups)
     sample = harness.cell_sample(kind, traffic, seeds[3])
     if prob is None:
         raw = graphs.make_graph(cfg["graph"], device=device)
-        prob = harness.reference_problem(raw, cfg, traffic, device)
+        prob = harness.reference_problem(ref_mod, raw, cfg, traffic, device)
     out = {"workload": workload, "seed": seed}
     if kind == "serve":
         m = cfg["model"]
@@ -66,17 +68,18 @@ def readings(bench, workload: str, seed: int, device, prob=None,
             prob.n_classes, seed, device)
         ctrl = alt = 0.0
         for k in range(w1.shape[0]):
-            ref = reference.eval_logp(prob, w1[k], w2[k], alpha=m["alpha"],
-                                      niter=m["niter"])
-            low = reference.eval_logp(prob, w1[k], w2[k], alpha=m["alpha"],
-                                      niter=m["niter"], precision="tf32")
+            ref = ref_mod.eval_logp(prob, w1[k], w2[k], alpha=m["alpha"],
+                                    niter=m.get("niter"))
+            low = ref_mod.eval_logp(prob, w1[k], w2[k], alpha=m["alpha"],
+                                    niter=m.get("niter"), precision="tf32")
             ctrl = max(ctrl, harness.serving_gap(ref, low.argmax(-1).cpu()))
             preds = ref.argmax(-1).cpu().numpy()
             preds[0] = (preds[0] + 1) % prob.n_classes
             alt = max(alt, harness.serving_gap(ref, preds))
         out.update(control={"gap": ctrl}, altered={"gap": alt})
         return out
-    refs = harness.training_references(prob, cfg, kind, seeds, sample)
+    refs = harness.training_references(ref_mod, prob, cfg, kind, seeds,
+                                       sample)
     out["refs"] = refs
     if not faults:
         return out
@@ -93,12 +96,12 @@ def readings(bench, workload: str, seed: int, device, prob=None,
         planted += [("rank0_key", {"fault": "rank0_key"}),
                     ("no_exchange", {"fault": "no_exchange"})]
     for name, kw in planted:
-        runs = harness.training_references(prob, cfg, kind, seeds, sample,
-                                           **kw)
-        out[name] = harness.compare_training(observed(runs), refs)
+        runs = harness.training_references(ref_mod, prob, cfg, kind, seeds,
+                                           sample, **kw)
+        out[name] = harness.compare_training(ref_mod, observed(runs), refs)
     still = [dict(o, change=[torch.zeros_like(c) for c in o["change"]])
              for o in observed(refs)]
-    out["unchanged"] = harness.compare_training(still, refs)
+    out["unchanged"] = harness.compare_training(ref_mod, still, refs)
     return out
 
 
@@ -128,14 +131,16 @@ def program_readings(bench, workload: str, seeds, seconds: float, device,
             group)
     del graph, prop, x
     harness._free_program(dev)
-    prob = harness.reference_problem(raw, cfg, traffic, dev)
+    ref_mod = bench.reference(cfg)
+    prob = harness.reference_problem(ref_mod, raw, cfg, traffic, dev)
     lines = []
     for i, seed in enumerate(seeds):
         if i % group.world != group.rank:
             continue
         r = readings(bench, workload, seed, dev, prob,
                      faults=i < fault_seeds)
-        r["program"] = harness.compare_training(observed[seed], r.pop("refs"))
+        r["program"] = harness.compare_training(ref_mod, observed[seed],
+                                                r.pop("refs"))
         lines.append(r)
     return lines
 

@@ -35,7 +35,10 @@ DRAW_INT_OPS = 63
 @dataclasses.dataclass(frozen=True)
 class Shapes:
     """One model's shapes: n nodes, Â's nnz, f features (X's nnz when X
-    is sparse), hidden width, c classes, K steps, G models at once."""
+    is sparse), hidden width, c classes, K steps, G models at once, and
+    the propagation the model runs: ``"power"`` (APPNP's K steps, which
+    the counts below are of) or ``"exact"`` (PPNP's dense Π; K is 0, and
+    a reader of such a cell counts Π's work itself)."""
     n: int
     nnz: int
     f: int
@@ -45,6 +48,7 @@ class Shapes:
     niter: int
     x_sparse: bool
     groups: int = 1
+    propagation: str = "power"
 
 
 def _fc1(s: Shapes) -> float:

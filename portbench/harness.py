@@ -11,6 +11,13 @@ The entry a cell drives is the traffic file's ``entry``:
   ``train.get_predictions`` over the whole graph, with the
   ``weight_sets`` served weight sets (drawn from the seed) in turn.
 
+The configuration's ``model.propagation`` names the model the program
+builds (``builders.build_propagator``): ``"power"``, APPNP's K steps
+(the default), or ``"exact"``, PPNP's dense Π. Its ``"reference"``
+names the module that ``correct`` is judged by (``Bench.reference``;
+default ``portbench/reference.py``), which the harness calls only
+through the loaded module.
+
 A traffic file with ``"propagation": "sharded"`` builds the program's
 row-sharded propagator (``builders.build_propagator``) over the cell's
 ``chips`` ranks, one process a card (``ranks.py``): every rank runs the
@@ -39,9 +46,10 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
-from portbench import counts, graphs, rankreads, reference
+from portbench import counts, graphs, rankreads
 from portbench.spec import BANNED, Bench, banned_modules, kind_of
 from portbench.tracing import Session, Trace
 
@@ -58,10 +66,13 @@ class WindowClosed(Exception):
 class Run:
     """What a per-layer reader reads: the traced segment of ``units``
     epochs or requests, the cell's kind, its shapes, and the time of one
-    unit over the measured window (profiler off). On several cards
-    ``trace`` is rank 0's, ``traces`` every rank's segment (the same
-    epochs) and ``shards`` each rank's own shapes; ``shapes`` are the
-    whole graph's."""
+    unit over the measured window (profiler off); ``cfg`` and
+    ``traffic``, the cell's configuration and mix as loaded from their
+    files, from which a reader counts what the shapes do not give (split
+    sizes, say); ``latencies_ms``, a serving window's requests (a failed
+    one infinite). On several cards ``trace`` is rank 0's, ``traces``
+    every rank's segment (the same epochs) and ``shards`` each rank's
+    own shapes; ``shapes`` are the whole graph's."""
     kind: str
     trace: Trace
     units: int
@@ -71,6 +82,9 @@ class Run:
     world: int = 1
     traces: tuple = ()
     shards: tuple = ()
+    cfg: Dict = dataclasses.field(default_factory=dict)
+    traffic: Dict = dataclasses.field(default_factory=dict)
+    latencies_ms: tuple = ()
 
 
 class _Window:
@@ -195,7 +209,9 @@ def cell_sample(kind: str, traffic: Dict, rng) -> List[int]:
 
 def _program_inputs(raw: graphs.RawGraph, cfg: Dict, traffic: Dict, dev):
     """The program's graph, propagator and staged X, built by its own
-    entry points from copies of the raw graph."""
+    entry points from copies of the raw graph: the propagation the
+    configuration's model names (``"exact"`` on one card only, with no
+    backend), row-sharded where the mix says so."""
     from ppnp_tpu_torch.builders import build_propagator
     from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.data.sparsegraph import SparseGraph
@@ -209,6 +225,11 @@ def _program_inputs(raw: graphs.RawGraph, cfg: Dict, traffic: Dict, dev):
     if cfg["standardize"]:
         graph = graph.standardize()
     m = cfg["model"]
+    propagation = m.get("propagation", "power")
+    if propagation == "exact" and (traffic.get("propagation") == "sharded"
+                                   or "backend" in traffic):
+        raise ValueError("an exact model runs on one card: its mix names "
+                         "neither a sharded propagation nor a backend")
     if traffic.get("propagation") == "sharded":
         # the graph in its own order: the CLI's --shard-reorder none
         prop = build_propagator(RunConfig(
@@ -216,7 +237,7 @@ def _program_inputs(raw: graphs.RawGraph, cfg: Dict, traffic: Dict, dev):
             exchange=traffic["exchange"], n_shards=traffic["n_shards"],
             alpha=m["alpha"], niter=m["niter"], drop_prob=m["drop_prob"]),
             graph, dev)
-    elif traffic["backend"] == "blocked":
+    elif traffic.get("backend") == "blocked":
         blocked = build_blocked_csr(
             calc_A_hat(graph.adj_matrix),
             rows_per_block=traffic["rows_per_block"],
@@ -225,9 +246,11 @@ def _program_inputs(raw: graphs.RawGraph, cfg: Dict, traffic: Dict, dev):
                                  drop_prob=m["drop_prob"], backend="blocked",
                                  blocked=blocked)
     else:
-        prop = build_propagator(RunConfig(
-            backend=traffic["backend"], alpha=m["alpha"], niter=m["niter"],
-            drop_prob=m["drop_prob"]), graph, dev)
+        kw = dict(propagation=propagation, alpha=m["alpha"],
+                  drop_prob=m["drop_prob"])
+        if propagation == "power":
+            kw.update(backend=traffic["backend"], niter=m["niter"])
+        prop = build_propagator(RunConfig(**kw), graph, dev)
     x = prepare_attr_input(graph, prop, x_format=cfg["x_format"],
                            hidden=max(m["hidden"]))
     return graph, prop, x
@@ -391,6 +414,10 @@ def _drive_serving(cfg: Dict, traffic: Dict, graph, prop, x, seed: int,
 
 def _shapes(cfg: Dict, traffic: Dict, graph, prop, x, groups: int
             ) -> counts.Shapes:
+    """The cell's shapes. Â's entries are read from the propagator's
+    operator where it has one (its blocked or CSR form, the sharded
+    plan), else counted from the graph (A + I), as for exact PPNP, whose
+    Π has no sparse operator; an exact model has no K (``niter`` 0)."""
     m = cfg["model"]
     n, f = graph.attr_matrix.shape
     sparse = cfg["x_format"] == "sparse"
@@ -398,12 +425,19 @@ def _shapes(cfg: Dict, traffic: Dict, graph, prop, x, groups: int
         nnz = prop.graph.nnz  # the whole Â; x holds this rank's rows
         sparse_nnz = 0
     else:
-        nnz = prop.blocked.nnz if prop.blocked is not None else prop.csr.nnz
         sparse_nnz = int(x.csr.nnz) if sparse else 0
+        if getattr(prop, "blocked", None) is not None:
+            nnz = prop.blocked.nnz
+        elif getattr(prop, "csr", None) is not None:
+            nnz = prop.csr.nnz
+        else:
+            nnz = (sp.csr_matrix(graph.adj_matrix)
+                   + sp.identity(n, format="csr")).nnz
     return counts.Shapes(
         n=n, nnz=int(nnz), f=f, nnz_x=sparse_nnz,
         hidden=max(m["hidden"]), c=int(np.max(graph.labels)) + 1,
-        niter=m["niter"], x_sparse=sparse, groups=groups)
+        niter=int(m.get("niter", 0)), x_sparse=sparse, groups=groups,
+        propagation=m.get("propagation", "power"))
 
 
 def _shard_shapes(shapes: counts.Shapes, prop) -> counts.Shapes:
@@ -419,21 +453,23 @@ def _relative(got, want) -> float:
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
 
-def compare_training(observed, refs) -> Dict[str, float]:
+def compare_training(ref, observed, refs) -> Dict[str, float]:
     """The numbers ``correct`` compares in a training cell: each of the
     three steps' loss and the stopping-set loss after it (relative gap),
-    the first gradient and the change after three steps (worst leaf; the
-    change over the entries whose first gradient is not near zero)."""
+    the first gradient and the change after three steps (worst leaf, by
+    the reference module ``ref``'s ``leaf_gaps``; the change over the
+    entries whose first gradient is not near zero)."""
     loss = stop = grad = change = 0.0
-    for obs, ref in zip(observed, refs):
-        loss = max(loss, _relative(obs["losses"], ref["losses"]))
-        stop = max(stop, _relative(obs["stop_losses"], ref["stop_losses"]))
-        grad = max(grad, max(reference.leaf_gaps(
-            obs["grad1"], ref["grad1"], ref["grad1"])))
-        change = max(change, max(reference.leaf_gaps(
-            obs["change"], [p - q for p, q in zip(ref["params"],
-                                                   ref["params0"])],
-            ref["grad1"], steady_entries=True)))
+    for obs, want in zip(observed, refs):
+        loss = max(loss, _relative(obs["losses"], want["losses"]))
+        stop = max(stop, _relative(obs["stop_losses"],
+                                   want["stop_losses"]))
+        grad = max(grad, max(ref.leaf_gaps(
+            obs["grad1"], want["grad1"], want["grad1"])))
+        change = max(change, max(ref.leaf_gaps(
+            obs["change"], [p - q for p, q in zip(want["params"],
+                                                   want["params0"])],
+            want["grad1"], steady_entries=True)))
     return {"loss": float(loss), "stop_loss": float(stop),
             "grad": float(grad), "change": float(change)}
 
@@ -447,24 +483,27 @@ def serving_gap(logp_ref: torch.Tensor, preds) -> float:
     return float((best - got).max())
 
 
-def training_references(prob, cfg, kind, seeds, sample, *,
+def training_references(ref, prob, cfg, kind, seeds, sample, *,
                         precision="float64", fault=None) -> List[Dict]:
-    """The reference's first three steps of each model in ``sample``."""
+    """The reference module ``ref``'s first three steps of each model in
+    ``sample``."""
     model_seed, split_seed, sweep, _ = seeds
     out = []
     for g in sample:
         s = model_seed if kind == "train" else sweep[g]
         ss = split_seed if kind == "train" else s & 0x7FFFFFFF
-        out.append(reference.train_steps(
+        out.append(ref.train_steps(
             prob, cfg["model"], cfg["split"], seed=s, split_seed=ss,
             precision=precision, fault=fault))
     return out
 
 
-def reference_problem(raw, cfg, traffic, device):
-    return reference.prepare(
+def reference_problem(ref, raw, cfg, traffic, device):
+    """The reference module ``ref``'s own derivation of the run's
+    inputs from the raw graph (``prepare``)."""
+    return ref.prepare(
         raw.adj, raw.attr, raw.labels, standardize=cfg["standardize"],
-        arm=traffic["edge_ids"], x_format=cfg["x_format"],
+        arm=traffic.get("edge_ids"), x_format=cfg["x_format"],
         rows_per_block=traffic.get("rows_per_block", 0),
         reorder=traffic.get("reorder"),
         n_shards=traffic.get("n_shards", 0), device=device)
@@ -494,6 +533,7 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
     cfg = bench.config(cell["config"])
     traffic = bench.traffic(cell["traffic"])
     limits = bench.limits(workload)
+    ref = bench.reference(cfg)
     kind = kind_of(traffic)
     if group is not None and kind != "train":
         raise ValueError(f"a {kind} cell runs on one card; only train_model "
@@ -523,6 +563,7 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
         f"{time.perf_counter() - t_inputs:.3f} s"]
 
     traced: Optional[Trace] = None
+    latencies_ms: tuple = ()
     if kind in ("train", "sweep"):
         window, observed = _drive_training(kind, cfg, traffic, graph, prop,
                                            x, seeds, seconds, trace, sample,
@@ -550,12 +591,16 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
         lat, t0, span, answers, weights, failed, traced = _drive_serving(
             cfg, traffic, graph, prop, x, seed, rng, seconds, trace, dev)
         lat_ms = np.array(lat) * 1e3
+        latencies_ms = tuple(lat_ms.tolist())
         finite = lat_ms[np.isfinite(lat_ms)]
         unit_s = span / len(lat)
-        e2e = {"request_p95_ms": float(np.percentile(lat_ms, 95))}
+        # closed loop, one client: the rate at which it completes
+        # requests; its tail is read per layer (``request_p95_ms``)
+        e2e = {"requests_per_s": (len(lat) - failed) / span}
         attempted = len(lat)
         stderr.append(
-            f"requests {len(lat)} (failed {failed}) in {span:.4f} s; "
+            f"requests {len(lat)} (failed {failed}) in {span:.4f} s, "
+            f"{e2e['requests_per_s']:.4f} a second; "
             f"ms: p50 {np.percentile(lat_ms, 50):.4f}, p95 "
             f"{np.percentile(lat_ms, 95):.4f}, p99 "
             f"{np.percentile(lat_ms, 99):.4f}, mean "
@@ -585,7 +630,8 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
         run = Run(kind=kind, trace=traced, units=int(
             traffic["trace_epochs" if kind != "serve" else "trace_requests"]),
             step_s=unit_s, shapes=shapes, world=world, traces=traces,
-            shards=shards)
+            shards=shards, cfg=cfg, traffic=traffic,
+            latencies_ms=latencies_ms)
         metrics = {}
         for m in bench.per_layer(workload):
             value = bench.reader(m["name"])(run)
@@ -628,15 +674,16 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
     if group is not None:
         group.wait_freed()
     t_ref = time.perf_counter()
-    prob = reference_problem(raw, cfg, traffic, dev)
+    prob = reference_problem(ref, raw, cfg, traffic, dev)
     if kind == "serve":
-        checks = {"gap": max((serving_gap(reference.eval_logp(
-            prob, weights[0][k], weights[1][k], alpha=cfg["model"]["alpha"],
-            niter=cfg["model"]["niter"]), preds)
+        m = cfg["model"]
+        checks = {"gap": max((serving_gap(ref.eval_logp(
+            prob, weights[0][k], weights[1][k], alpha=m["alpha"],
+            niter=m.get("niter")), preds)
             for k, (_, preds) in answers.items()), default=np.inf)}
     else:
-        refs = training_references(prob, cfg, kind, seeds, sample)
-        checks = compare_training(observed, refs)
+        refs = training_references(ref, prob, cfg, kind, seeds, sample)
+        checks = compare_training(ref, observed, refs)
     stderr.append(f"reference {time.perf_counter() - t_ref:.3f} s")
     result["correct"] = bool(
         failed == 0 and all(np.isfinite(v) and v <= limits[k]

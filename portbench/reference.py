@@ -30,6 +30,37 @@ split(key_prop, K)[k], rank), part)``); NLL on the
 training nodes plus ``λ/2·‖W₁‖²``; one Adam step with optax's
 arithmetic; then the stopping-set eval: the eval forward (no dropout)
 with the updated weights, NLL on the stopping nodes.
+
+**The interface of a reference module.** This module is the default; a
+configuration may name another by path (its top-level ``"reference"``,
+``spec.Bench.reference``), such as one under ``portbench/references/``.
+The harness and ``calibrate.py`` call only these four, with these
+arguments, so a module that defines them can stand in:
+
+- ``prepare(adj, attr, labels, *, standardize, arm, x_format,
+  rows_per_block, reorder, n_shards, device)``: the problem that the
+  other three take, worked out from the raw graph (scipy CSR ``adj`` and
+  ``attr``, int ``labels``) on ``device``; ``arm`` is the mix's
+  ``edge_ids`` (None where it names none), ``rows_per_block``,
+  ``reorder`` and ``n_shards`` the mix's or 0 / None. The problem has
+  ``f`` and ``n_classes``.
+- ``train_steps(problem, model, split_args, *, seed, split_seed,
+  precision, fault)``: the first three training steps of one seed
+  (``model`` and ``split_args`` are the configuration's ``model`` and
+  ``split`` blocks); a dict of ``losses``, ``stop_losses``, ``grad1``,
+  ``params0`` and ``params`` (below). Only training cells call it.
+- ``eval_logp(problem, w1, w2, *, alpha, niter, precision="float64",
+  fault=None)``: the (n, c) float64 log-probabilities of every node in
+  eval mode, under weights in the layout ``x @ w`` (``niter`` is None
+  where the model has none). Serving cells call it.
+- ``leaf_gaps(program, reference, ref_grads, *, steady_entries=False)``:
+  the per-leaf gaps that a training cell's ``grad`` and ``change`` take
+  the worst of.
+
+``precision`` is ``"float64"`` or, for the control, ``"tf32"``;
+``fault`` names a planted fault (calibrate.py) or None. Such a module
+imports nothing of the program; it may import this one, to reuse the
+Threefry copies and key schedule, the MLP, Adam and the splits.
 """
 
 from __future__ import annotations

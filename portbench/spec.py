@@ -12,10 +12,21 @@
 - a per-layer metric: the reader ``metrics/<name>.py``, else
   ``metrics/<name up to its first dot>.py`` (one reader serves
   ``mfu.train``, ``mfu.sweep`` and ``mfu.serve``), whose ``read(run)``
-  returns a number or None when it finds nothing to read.
+  returns a number or None when it finds nothing to read;
+- a configuration's reference: the module its file's top-level
+  ``"reference"`` names (a path from the checkout's root, under the
+  benchmark's directory, such as ``portbench/references/<name>.py``),
+  else ``portbench/reference.py``; its interface is in that module's
+  docstring.
 
-A later change adds a configuration, a mix, a cell or a metric by adding
-such files and entries; no file here needs an edit for it.
+A configuration's ``model`` block chooses the model: ``"propagation"``
+is ``"power"`` (APPNP's K steps, the default; ``niter`` required) or
+``"exact"`` (PPNP's dense Π; no ``niter``). How a mix runs across ranks
+(``"propagation": "sharded"``) is the traffic file's.
+
+A later change adds a configuration, a mix, a cell, a metric or a
+reference by adding such files and entries; no file here needs an edit
+for it.
 """
 
 from __future__ import annotations
@@ -25,10 +36,11 @@ import json
 import re
 import sys
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
-__all__ = ["Bench", "validate", "ENTRIES", "kind_of", "BANNED",
-           "banned_modules"]
+__all__ = ["Bench", "validate", "validate_config", "ENTRIES", "kind_of",
+           "BANNED", "banned_modules"]
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -40,6 +52,8 @@ BANNED = ("jax", "jaxlib", "flax", "ppnp_tpu")
 # a traffic mix's ``entry`` -> the kind of cell it drives
 ENTRIES = {"train_model": "train", "train_models": "sweep",
            "get_predictions": "serve"}
+# a configuration's ``model.propagation``: the model it runs
+PROPAGATIONS = ("power", "exact")
 
 
 def banned_modules() -> List[str]:
@@ -73,8 +87,36 @@ class Bench:
     def config(self, name: str) -> Dict:
         for c in self.doc["configs"]:
             if c["name"] == name:
-                return json.loads((self.root / c["file"]).read_text())
+                cfg = json.loads((self.root / c["file"]).read_text())
+                bad = validate_config(cfg)
+                if bad:
+                    raise ValueError(f"configuration {name!r}: "
+                                     + "; ".join(bad))
+                return cfg
         raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
+
+    def reference(self, cfg: Dict) -> ModuleType:
+        """The reference module of a loaded configuration: the file its
+        ``"reference"`` names, loaded by path, else
+        ``portbench.reference``."""
+        if "reference" not in cfg:
+            from portbench import reference
+            return reference
+        path = (self.root / cfg["reference"]).resolve()
+        if not path.is_relative_to(self.pkg.resolve()):
+            raise ValueError(f"reference {cfg['reference']!r} lies outside "
+                             f"{self.pkg}")
+        name = "portbench_reference_" + re.sub(r"\W", "_", str(path))
+        if name not in sys.modules:
+            spec = importlib.util.spec_from_file_location(name, path)
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[name] = mod  # a dataclass there looks itself up
+            try:
+                spec.loader.exec_module(mod)
+            except BaseException:
+                del sys.modules[name]
+                raise
+        return sys.modules[name]
 
     def traffic(self, name: str) -> Dict:
         return json.loads((self.pkg / "traffic" / f"{name}.json").read_text())
@@ -104,6 +146,27 @@ class Bench:
                 return mod.read
         raise FileNotFoundError(f"no reader for per-layer metric {metric!r} "
                                 f"under {self.pkg / 'metrics'}")
+
+
+def validate_config(cfg: Dict) -> List[str]:
+    """What in a configuration file breaks the rules the harness reads
+    it by: its model's ``propagation``, ``niter`` where the model runs K
+    steps, and its ``reference``'s path."""
+    bad: List[str] = []
+    model = cfg.get("model", {})
+    prop = model.get("propagation", "power")
+    if prop not in PROPAGATIONS:
+        bad.append(f"model.propagation {prop!r} is not one of "
+                   f"{PROPAGATIONS}")
+    elif prop == "power" and "niter" not in model:
+        bad.append("model.niter is required unless model.propagation is "
+                   "'exact'")
+    ref = cfg.get("reference")
+    if ref is not None and not (
+            isinstance(ref, str) and PATH.match(ref) and ref.endswith(".py")
+            and ".." not in ref.split("/") and not ref.startswith("/")):
+        bad.append(f"reference {ref!r} is not a relative path to a .py file")
+    return bad
 
 
 def validate(doc: Dict) -> List[str]:

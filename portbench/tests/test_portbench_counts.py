@@ -1,10 +1,15 @@
 """The operation and byte counts, and the reduction of a trace: the
 device's busy union, the span-to-kernel attribution, launches, host
-span time and the breakdown, on a small synthetic trace."""
+span time and the breakdown, on a small synthetic trace; and the shapes
+the harness gives each tiny cell."""
+
+import dataclasses
 
 import pytest
+import torch
 
-from portbench import counts
+from portbench import counts, graphs, harness
+from portbench.tests import tinybench
 from portbench.tracing import WINDOW_SPAN, parse
 
 MSA = counts.Shapes(n=18331, nnz=206015, f=6805, nnz_x=146537, hidden=64,
@@ -98,3 +103,49 @@ def test_one_window_span_required():
     doc["traceEvents"] = doc["traceEvents"][1:]
     with pytest.raises(ValueError):
         parse(doc)
+
+
+# each tiny one-card cell's shapes, and the counts from them, as the
+# harness gave them before ``Shapes`` had ``propagation`` (written down
+# from a run of that tree): (n, nnz, f, nnz_x, hidden, c, niter,
+# x_sparse, groups), epoch and request FLOPs, least propagation s (eval,
+# train)
+BEFORE = {
+    "t_fused": ((400, 3952, 300, 3151, 64, 4, 3, True, 1), 2313728.0,
+                702976.0, 1.3737313432835821e-08, 2.236311377245509e-08),
+    "t_pallas": ((400, 3952, 300, 3151, 64, 4, 3, True, 1), 2313728.0,
+                 702976.0, 1.3737313432835821e-08, 2.236311377245509e-08),
+    "t_blocked": ((600, 6146, 64, 0, 64, 4, 3, False, 1), 16416912.0,
+                  5369904.0, 2.112597014925373e-08, 3.4778263473053895e-08),
+    "t_sweep": ((400, 3952, 300, 3151, 64, 4, 3, True, 4), 9254912.0,
+                2811904.0, 2.52e-08, 8.945245508982036e-08),
+    "t_serve": ((2000, 20144, 800, 15898, 64, 8, 3, True, 1), 17197568.0,
+                5049856.0, 8.870328358208956e-08, 1.1398850299401198e-07),
+}
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    return tinybench.make(tmp_path_factory.mktemp("counts"))
+
+
+@pytest.mark.parametrize("workload", sorted(BEFORE))
+def test_tiny_cells_count_what_they_counted(tiny, workload):
+    """A configuration without ``model.propagation`` gets the shapes
+    and counts it got before: ``propagation`` is "power" and nothing
+    else moved."""
+    cell = tiny.cell(workload)
+    cfg, traffic = tiny.config(cell["config"]), tiny.traffic(cell["traffic"])
+    raw = graphs.make_graph(cfg["graph"])
+    graph, prop, x = harness._program_inputs(raw, cfg, traffic,
+                                             torch.device("cpu"))
+    s = harness._shapes(cfg, traffic, graph, prop, x,
+                        int(traffic.get("groups", 1)))
+    fields, epoch, request, least_eval, least_train = BEFORE[workload]
+    names = [f.name for f in dataclasses.fields(counts.Shapes)]
+    assert dataclasses.asdict(s) == dict(zip(names, fields),
+                                         propagation="power")
+    assert counts.epoch_flops(s) == epoch
+    assert counts.request_flops(s) == request
+    assert counts.propagation_least_s(s, train=False) == least_eval
+    assert counts.propagation_least_s(s, train=True) == least_train

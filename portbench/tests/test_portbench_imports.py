@@ -1,8 +1,10 @@
 """Nothing the benchmark runs loads JAX or the JAX package, compared by
-whole top-level module names; the reference and the generators import
+whole top-level module names; the reference, every reference module a
+configuration names or ``references/`` holds, and the generators import
 nothing of the program; without the program no result is printed."""
 
 import ast
+import json
 import shutil
 import subprocess
 import sys
@@ -29,9 +31,24 @@ def _imports(path):
             yield node.module.split(".")[0]
 
 
+def _references():
+    """Every reference module that a configuration under ``configs/``
+    names, every module under ``references/``, and the test fixtures
+    that stand in as references: paths under the package."""
+    pkg = tinybench.PKG
+    named = {(tinybench.ROOT / json.loads(f.read_text())["reference"])
+             for f in (pkg / "configs").glob("*.json")
+             if "reference" in json.loads(f.read_text())}
+    found = set((pkg / "references").rglob("*.py")) | {
+        f for f in (pkg / "tests").glob("*_reference.py")
+        if not f.name.startswith("test_")}
+    return sorted(str(p.resolve().relative_to(pkg)) for p in named | found)
+
+
 @pytest.mark.parametrize("name", ["reference.py", "graphs.py", "counts.py",
                                   "tracing.py", "spec.py", "shardplan.py",
-                                  "ranks.py", "rankreads.py"])
+                                  "ranks.py", "rankreads.py"]
+                         + _references())
 def test_yardstick_imports_nothing_of_the_program(name):
     got = set(_imports(tinybench.PKG / name))
     assert not got & {"ppnp_tpu_torch", "ppnp_tpu", "jax", "jaxlib",

@@ -70,7 +70,7 @@ MIXES = {
                        "edge_ids": "blocked", "rows_per_block": 96,
                        "reorder": "rcm", "weight_sets": 2,
                        "warmup_requests": 2, "trace_requests": 3},
-                      "request_p95_ms", "msa_serve"),
+                      "requests_per_s", "msa_serve"),
 }
 
 

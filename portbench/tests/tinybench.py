@@ -90,7 +90,7 @@ def make(tmp, cells=CELLS, limits=None) -> Bench:
     by_kind["sharded"] = [n for n, (_, t) in cells.items()
                           if "n_shards" in t]
     e2e = {"epoch_ms": "train", "seed_epochs_per_s": "sweep",
-           "request_p95_ms": "serve"}
+           "requests_per_s": "serve"}
     # the training cells' metrics, where no shipped cell reports them:
     # those of the sweep, moving epoch_ms
     if "epoch_ms" not in {m["name"] for m in doc["end_to_end"]}:
