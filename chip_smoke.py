@@ -1046,7 +1046,8 @@ def serving_path(dev):
     from ppnp_tpu_torch.config import RunConfig
     from ppnp_tpu_torch.kernels import build
     from ppnp_tpu_torch.models.appnp import init_mlp_params, ppnp_forward
-    from ppnp_tpu_torch.train import prepare_attr_input
+    from ppnp_tpu_torch.train import (REQUEST_GRAPHS, prepare_attr_input,
+                                      reset_request_graphs)
 
     graph = load_graph(RunConfig(dataset=DATASET))
     n, f = graph.attr_matrix.shape
@@ -1067,6 +1068,7 @@ def serving_path(dev):
         out_npz = ckpt / f"preds_{b}.npz"
         buf = io.StringIO()
         build.reset_launches()
+        reset_request_graphs()
         with contextlib.redirect_stdout(buf):
             rc = cli_main(["predict", "--dataset", DATASET, "--backend", b,
                            "--device", str(dev),
@@ -1080,12 +1082,15 @@ def serving_path(dev):
         request_ms[b] = res["request_ms"]
         print(f"predict --backend {b}: n={res['n']} "
               f"request_ms={[round(t, 3) for t in res['request_ms']]} "
-              f"launches={launches[b]}")
-        want = {k: expected[b].get(k, 0) * REQUESTS
+              f"launches={launches[b]} request graphs={REQUEST_GRAPHS}")
+        want = {k: expected[b].get(k, 0) * wrapper_runs(REQUESTS)
                 for k in build.LAUNCHES}
-        if launches[b] != want:
+        graphs = {"eager": 1, "captured": int(REQUESTS >= 2),
+                  "replayed": max(REQUESTS - 2, 0)}
+        if launches[b] != want or REQUEST_GRAPHS != graphs:
             raise SystemExit(f"predict --backend {b}: launches "
-                             f"{launches[b]}, expected {want}")
+                             f"{launches[b]}, expected {want}; request "
+                             f"graphs {REQUEST_GRAPHS}, expected {graphs}")
         if preds[b].shape != (n,) or preds[b].min() < 0 \
                 or preds[b].max() >= n_classes:
             raise SystemExit(f"predict --backend {b}: bad predictions")
@@ -1133,6 +1138,14 @@ def serving_path(dev):
     if not same:
         raise SystemExit("log-probs of the fused and pallas arms differ")
     return launches, request_ms
+
+
+def wrapper_runs(requests: int) -> int:
+    """The kernel wrappers' runs in ``requests`` requests of one operand
+    set on a one-card propagator, in requests: the first eager, the
+    second an eager run on the capture stream and the capture, the rest
+    replays, which run none (``train.get_predictions``)."""
+    return min(requests, 1) + 2 * (requests >= 2)
 
 
 def launches_per_epoch(backend: str, niter: int) -> dict:
@@ -1534,8 +1547,10 @@ def seed_sweep_path(dev):
     got, rows, wall, _ = run_reproduce(dev, args, "sweep_serial")
     launches["reproduce serial"] = got
     per = launches_per_epoch("pallas", niter)
-    want = {k: (per.get(k, 0) * SERIAL_EPOCHS
-                + FINAL_EVAL["pallas"].get(k, 0)) * SERIAL_SEEDS
+    # one x and propagator for every seed: the final evaluations are
+    # requests of one operand set
+    want = {k: per.get(k, 0) * SERIAL_EPOCHS * SERIAL_SEEDS
+            + FINAL_EVAL["pallas"].get(k, 0) * wrapper_runs(SERIAL_SEEDS)
             for k in got}
     if got != want:
         raise SystemExit(f"reproduce serial: launches {got}, expected "
@@ -2125,7 +2140,7 @@ def blocked_path(dev):
     if rc != 0:
         raise SystemExit(f"predict --backend blocked exited {rc}")
     want = {k: 0 for k in got}
-    want["spmm_csr"] = (bcsr.n_blocks * niter + 1) * REQUESTS
+    want["spmm_csr"] = (bcsr.n_blocks * niter + 1) * wrapper_runs(REQUESTS)
     res = json.loads(buf.getvalue())
     preds = np.load(out_npz)["predictions"]
     print(f"predict --backend blocked ({bcsr.n_blocks} blocks): "

@@ -11,7 +11,10 @@ edited source is never served by a stale build.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: a wrapper
 adds one right after its kernel was launched without error, and nowhere
-else, so a run can show that the main path went through the kernels.
+else, so a run can show that the main path went through the kernels. It
+counts wrapper calls: a launch captured into a CUDA graph counts once,
+and a replay of the graph adds nothing (``train.get_predictions`` and
+its ``REQUEST_GRAPHS``).
 """
 
 from __future__ import annotations

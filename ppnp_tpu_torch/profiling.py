@@ -28,8 +28,9 @@ The port's counterpart of ``ppnp_tpu/profiling.py``:
   ``metrics`` row is written after the epoch's span has closed, inside a
   ``ppnp/metrics`` span of its own (the writer is the caller's code).
   ``get_predictions`` is one ``ppnp/request`` holding ``ppnp/mlp``,
-  ``ppnp/propagate`` and ``ppnp/readback``; every mask call is a
-  ``ppnp/masks``;
+  ``ppnp/propagate`` and ``ppnp/readback`` (a replayed request launches
+  one CUDA graph in each, holding the kernels the span launches
+  eagerly); every mask call is a ``ppnp/masks``;
 - ``phase(name)``: work done once a call (``ppnp/setup/standardize``,
   ``ppnp/setup/propagator``, ``ppnp/setup/attr``, ``ppnp/setup/seeds``),
   timed on ``time.perf_counter`` whether or not a profiler runs and

@@ -1030,3 +1030,157 @@ def test_example_on_the_card(dev):
              & np.pad(gaps, ((0, 0), (0, 1)), constant_values=True))
     np.testing.assert_array_equal(runs["pallas"]["top5"][apart],
                                   runs["fused"]["top5"][apart])
+
+
+# ---- get_predictions from CUDA graphs (train._RequestGraphs) ----
+
+_ARMS = ["fused", "pallas", "xla", "blocked", "exact"]
+
+
+def _served(dev, arm):
+    """A graph, a propagator of ``arm`` and its staged X on the card, and
+    8 weight sets of one shape (the served models); X is sparse (fc1
+    through K1) but on the exact arm. The cache and counts start
+    empty."""
+    from ppnp_tpu_torch import builders, train
+    from ppnp_tpu_torch.config import RunConfig
+    from ppnp_tpu_torch.data.synthetic import make_attributed_sbm
+    from ppnp_tpu_torch.models.appnp import init_mlp_params
+
+    graph = make_attributed_sbm(n_nodes=2000, n_classes=5, n_features=300,
+                                n_edges=10000, seed=5).standardize()
+    cfg = (RunConfig(propagation="exact") if arm == "exact"
+           else RunConfig(backend=arm, rows_per_block=512))
+    prop = builders.build_propagator(cfg, graph, device=dev)
+    x = train.prepare_attr_input(
+        graph, prop, x_format="dense" if arm == "exact" else "sparse")
+    models = [init_mlp_params(300, [64], 5, key=prng.PRNGKey(k), device=dev)
+              for k in range(8)]
+    train._REQUEST_CACHE.clear()
+    train.reset_request_graphs()
+    return train, prop, x, models
+
+
+def _eager_logp(model, x, prop):
+    from ppnp_tpu_torch.models.appnp import ppnp_forward
+    with torch.no_grad():
+        return ppnp_forward(model, x, prop, None, train=False)
+
+
+@pytest.mark.parametrize("arm", _ARMS)
+def test_request_graphs_bit_equal_to_eager(dev, arm):
+    """8 weight sets served in turn: the first request eager, the second
+    captured, the rest replayed; every answer's predictions, and the
+    replayed log-probabilities, bit-equal to the eager forward's; one
+    capture for the operand set. The xla arm adds with ``index_add_``,
+    in no fixed order unless deterministic algorithms are on."""
+    train, prop, x, models = _served(dev, arm)
+    torch.use_deterministic_algorithms(arm == "xla", warn_only=True)
+    try:
+        for i in range(26):
+            model = models[i % 8]
+            preds = train.get_predictions(model, x, prop)
+            want = _eager_logp(model, x, prop)
+            assert np.array_equal(preds, want.argmax(-1).cpu().numpy()), i
+            if i >= 2:
+                graphs, = train._REQUEST_CACHE.values()
+                assert torch.equal(graphs.outputs[-1][0], want), i
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert train.REQUEST_GRAPHS == {"eager": 1, "captured": 1,
+                                    "replayed": 24}
+
+
+def test_request_graphs_leave_k3_sync_words_zeroed(dev):
+    """K3's sync words on the capture stream, which the graphs' K3 node
+    uses, are zero after 1,000 replays, and the answers still right."""
+    from ppnp_tpu_torch.kernels import fused
+
+    train, prop, x, models = _served(dev, "fused")
+    for i in range(1002):
+        preds = train.get_predictions(models[i % 8], x, prop)
+    assert train.REQUEST_GRAPHS["replayed"] == 1000
+    stream = train._CAPTURE_STREAMS[dev.index or 0]
+    torch.cuda.synchronize()
+    words = fused._SYNC[(dev.index or 0, stream.cuda_stream)]
+    assert not words.any()
+    want = _eager_logp(models[1001 % 8], x, prop).argmax(-1).cpu().numpy()
+    assert np.array_equal(preds, want)
+
+
+def test_request_graphs_follow_weights_changed_in_place(dev):
+    """A weight changed in place shows in the next replayed request."""
+    train, prop, x, models = _served(dev, "fused")
+    model = models[0]
+    for _ in range(3):
+        before = train.get_predictions(model, x, prop)
+    with torch.no_grad():
+        model.layers[1].weight.neg_()
+    after = train.get_predictions(model, x, prop)
+    assert train.REQUEST_GRAPHS == {"eager": 1, "captured": 1, "replayed": 2}
+    want = _eager_logp(model, x, prop).argmax(-1).cpu().numpy()
+    assert np.array_equal(after, want) and not np.array_equal(after, before)
+
+
+def test_request_graphs_capture_again_for_new_operands(dev):
+    """A new X object, and the propagator's operator rebound to new
+    storage, are new operand sets: the first request of each is eager,
+    the second captures, and every answer is the eager forward's."""
+    import dataclasses
+
+    from ppnp_tpu_torch.ops.sparse_input import SparseInput
+
+    train, prop, x, models = _served(dev, "fused")
+    model = models[3]
+
+    def served(x):
+        preds = train.get_predictions(model, x, prop)
+        want = _eager_logp(model, x, prop).argmax(-1).cpu().numpy()
+        assert np.array_equal(preds, want)
+
+    for _ in range(3):
+        served(x)
+    x2 = SparseInput(csr=x.csr, csr_t=x.csr_t)
+    for _ in range(3):
+        served(x2)
+    assert train.REQUEST_GRAPHS == {"eager": 2, "captured": 2, "replayed": 2}
+    prop.csr = dataclasses.replace(prop.csr, col=prop.csr.col.clone())
+    prop.w_scaled = prop.w_scaled * 0.5
+    for _ in range(3):
+        served(x2)
+    assert train.REQUEST_GRAPHS == {"eager": 3, "captured": 3, "replayed": 3}
+
+
+def test_request_graphs_answer_in_new_arrays(dev):
+    """Two replayed requests return two arrays; the first keeps its
+    values after the second."""
+    train, prop, x, models = _served(dev, "fused")
+    for _ in range(2):
+        train.get_predictions(models[0], x, prop)
+    first = train.get_predictions(models[0], x, prop)
+    kept = first.copy()
+    second = train.get_predictions(models[1], x, prop)
+    assert train.REQUEST_GRAPHS["replayed"] == 2
+    assert not np.shares_memory(first, second)
+    assert np.array_equal(first, kept) and not np.array_equal(first, second)
+    assert first.dtype == np.int64
+
+
+def test_request_graphs_cache_holds_its_cap(dev):
+    """Operand sets past the cap drop the least recently used; a dropped
+    set is served eagerly again, then captured again."""
+    from ppnp_tpu_torch.ops.sparse_input import SparseInput
+
+    train, prop, x, models = _served(dev, "fused")
+    xs = [SparseInput(csr=x.csr, csr_t=x.csr_t)
+          for _ in range(train._GRAPH_CAP + 2)]
+    for xi in xs:
+        for _ in range(3):
+            train.get_predictions(models[0], xi, prop)
+            assert len(train._REQUEST_CACHE) <= train._GRAPH_CAP
+    n = len(xs)
+    assert train.REQUEST_GRAPHS == {"eager": n, "captured": n,
+                                    "replayed": n}
+    for _ in range(2):
+        train.get_predictions(models[0], xs[0], prop)
+    assert train.REQUEST_GRAPHS["captured"] == n + 1
