@@ -337,19 +337,10 @@ int spmm(const int* row_ptr, const int* col, const float* w_g,
 
 }  // namespace
 
-// K1 on `stream` (PyTorch's current stream); returns cudaGetLastError(),
-// 0 when the launch was accepted. `init` may be null.
-extern "C" int ppnp_spmm_csr(const int* row_ptr, const int* col,
-                             const float* w, const float* h,
-                             const float* init, float* out, int n_rows, int c,
-                             int device, void* stream) {
-  return spmm(row_ptr, col, w, h, init, out, n_rows, 1, c, 0, device,
-              stream);
-}
-
-// K2 on `stream`: G = `groups` planes w_g (groups x nnz, CSR order) over
-// one pattern, H and out of groups * cg columns; returns
-// cudaGetLastError(). `init` may be null.
+// K2 on `stream` (PyTorch's current stream): G = `groups` planes w_g
+// (groups x nnz, CSR order) over one pattern, H and out of groups * cg
+// columns; K1 is G = 1 with cg = c. Returns cudaGetLastError(), 0 when the
+// launch was accepted. `init` may be null.
 extern "C" int ppnp_grouped_spmm_csr(const int* row_ptr, const int* col,
                                      const float* w_g, const float* h,
                                      const float* init, float* out,

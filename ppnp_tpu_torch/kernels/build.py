@@ -45,11 +45,9 @@ _FUSED_ARGS = [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 2 + [_F] + [_I] \
 # library name -> {launch function: its argument types}; each returns a
 # CUDA error code
 _ENTRY = {
-    # row_ptr, col, w, h, init, out; n_rows, c, device; stream, and for
-    # the grouped kernel row_ptr, col, w_g, h, init, out; n_rows, groups,
-    # cg, nnz, device; stream
-    "spmm": {"ppnp_spmm_csr": [_P] * 6 + [_I] * 3 + [_P],
-             "ppnp_grouped_spmm_csr": [_P] * 6 + [_I] * 5 + [_P],
+    # K1 and K2: row_ptr, col, w_g, h, init, out; n_rows, groups, cg,
+    # nnz, device; stream
+    "spmm": {"ppnp_grouped_spmm_csr": [_P] * 6 + [_I] * 5 + [_P],
              # n_rows, groups, cg; h, init, shape (5 ints out); returns 0
              "ppnp_grouped_spmm_shape": [_I] * 3 + [_P] * 3},
     "fused": {"ppnp_appnp_fused": _FUSED_ARGS,

@@ -23,10 +23,12 @@ counterpart of ``make_spmm_grad_grouped``) runs K2 on the CSR of Aᵀ with
 the same G planes in Aᵀ's order for the backward. K2's launches count as
 ``spmm_grouped`` and ``spmm_grouped_bwd``.
 
-One CUDA kernel serves K1 (G = 1) and K2. A group of 8, 16 or 32 lanes
-owns a row and a tile of its columns, keeps register accumulators for
-the columns it owns and walks the row's edges once (edges outer, columns
-inner), with float4 / float2 gathers where the widths allow. Where a row
+One CUDA kernel, behind one C entry point and one launch path
+(``_spmm``), serves K1 (G = 1: its weights are K2's one plane) and K2. A
+group of 8, 16 or 32 lanes owns a row and a tile of its columns, keeps
+register accumulators for the columns it owns and walks the row's edges
+once (edges outer, columns inner), with float4 / float2 gathers where
+the widths allow. Where a row
 takes several passes (G·cg > 256) the vector width need only divide G·cg
 and the operands' alignment, and a vector slot may straddle two groups
 (cg = 15 at G = 100 gathers float4), its lane then reading both groups'
@@ -139,62 +141,6 @@ def spmm_csr_bwd(a_t: CsrMatrix, g: torch.Tensor,
     return _spmm(a_t, g, w_t, None, "spmm_csr_bwd")
 
 
-def _spmm(a: CsrMatrix, h: torch.Tensor, w: Optional[torch.Tensor],
-          init: Optional[torch.Tensor], counter: str) -> torch.Tensor:
-    _check(a, h, w, init, "spmm_csr")
-    if w is not None and tuple(w.shape) != (a.nnz,):
-        raise ValueError(f"spmm_csr: w must be of shape ({a.nnz},), got "
-                         f"{tuple(w.shape)}")
-    if h.device.type == "cpu":
-        return spmm_csr_plain(a, h, w, init)
-    if h.device.type != "cuda":
-        raise ValueError(f"spmm_csr: unsupported device {h.device}")
-    c = h.shape[1]
-    out = torch.empty((a.n_rows, c), dtype=torch.float32, device=h.device)
-    if a.n_rows == 0 or c == 0:
-        return out
-    w = a.val if w is None else w
-    lib = build.load_library("spmm")
-    err = lib.ppnp_spmm_csr(
-        a.row_ptr.data_ptr(), a.col.data_ptr(), w.data_ptr(), h.data_ptr(),
-        None if init is None else init.data_ptr(), out.data_ptr(),
-        a.n_rows, c, h.device.index or 0,
-        torch.cuda.current_stream(h.device).cuda_stream)
-    build.check_error(lib, err, "spmm_csr launch")
-    build.LAUNCHES[counter] += 1
-    return out
-
-
-class _SpmmGrad(torch.autograd.Function):
-    """``A_w @ h + init`` whose backward runs K1 on the transpose."""
-
-    @staticmethod
-    def forward(ctx, h, init, a, a_t, w, w_t):
-        ctx.a_t, ctx.w_t = a_t, w_t
-        return spmm_csr(a, h, w, init)
-
-    @staticmethod
-    def backward(ctx, g):
-        dh = (spmm_csr_bwd(ctx.a_t, g.contiguous(), ctx.w_t)
-              if ctx.needs_input_grad[0] else None)
-        dinit = g if ctx.needs_input_grad[1] else None
-        return dh, dinit, None, None, None, None
-
-
-def spmm_grad(a: CsrMatrix, a_t: CsrMatrix, h: torch.Tensor,
-              w: Optional[torch.Tensor] = None,
-              w_t: Optional[torch.Tensor] = None,
-              init: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Differentiable ``A_w @ h (+ init)``: forward through ``a``,
-    backward ``dh = A_wᵀ g`` through ``a_t`` (the CSR of Aᵀ) with ``w_t``,
-    the same weights in ``a_t``'s order (``None``: ``a_t.val``), and
-    ``d(init) = g``."""
-    if (a_t.n_rows, a_t.n_cols, a_t.nnz) != (a.n_cols, a.n_rows, a.nnz):
-        raise ValueError("spmm_grad: a_t is not shaped as the transpose "
-                         "of a")
-    return _SpmmGrad.apply(h.contiguous(), init, a, a_t, w, w_t)
-
-
 def spmm_csr_grouped_plain(a: CsrMatrix, h: torch.Tensor,
                            w_g: torch.Tensor,
                            init: Optional[torch.Tensor] = None
@@ -216,31 +162,39 @@ def spmm_csr_grouped(a: CsrMatrix, h: torch.Tensor, w_g: torch.Tensor,
     ``w_g`` is (G, nnz) float32, one plane per group in CSR order; ``h``
     is (n_cols, G·cg) with group g in columns [g·cg, (g+1)·cg).
     """
-    return _spmm_grouped(a, h, w_g, init, "spmm_grouped")
+    return _spmm(a, h, w_g, init, "spmm_grouped")
 
 
 def spmm_csr_grouped_bwd(a_t: CsrMatrix, g: torch.Tensor,
                          w_g_t: torch.Tensor) -> torch.Tensor:
     """The grouped backward's ``[A_{w_g}ᵀ @ g_g]_g`` through the CSR of
     Aᵀ with the planes in Aᵀ's order (counted as ``spmm_grouped_bwd``)."""
-    return _spmm_grouped(a_t, g, w_g_t, None, "spmm_grouped_bwd")
+    return _spmm(a_t, g, w_g_t, None, "spmm_grouped_bwd")
 
 
-def _spmm_grouped(a: CsrMatrix, h: torch.Tensor, w_g: torch.Tensor,
-                  init: Optional[torch.Tensor], counter: str
-                  ) -> torch.Tensor:
-    if w_g is None or w_g.dim() != 2 or w_g.shape[0] < 1 \
-            or w_g.shape[1] != a.nnz:
-        raise ValueError(f"spmm_csr_grouped: w_g must be of shape (G, "
-                         f"{a.nnz})")
-    _check(a, h, w_g, init, "spmm_csr_grouped")
-    if h.shape[1] % w_g.shape[0]:
-        raise ValueError(f"spmm_csr_grouped: h has {h.shape[1]} columns, "
-                         f"not a multiple of G={w_g.shape[0]}")
+def _spmm(a: CsrMatrix, h: torch.Tensor, w: Optional[torch.Tensor],
+          init: Optional[torch.Tensor], counter: str) -> torch.Tensor:
+    """K1 and K2's one launch path, counted under ``counter``. K1 (the
+    ``spmm_csr`` counters) takes ``w`` of shape (nnz,) or None for
+    ``a.val`` and launches it as K2's one plane; K2 takes (G, nnz)."""
+    grouped = counter.startswith("spmm_grouped")
+    who = "spmm_csr_grouped" if grouped else "spmm_csr"
+    if grouped and (w is None or w.dim() != 2 or w.shape[0] < 1
+                    or w.shape[1] != a.nnz):
+        raise ValueError(f"{who}: w_g must be of shape (G, {a.nnz})")
+    _check(a, h, w, init, who)
+    if grouped and h.shape[1] % w.shape[0]:
+        raise ValueError(f"{who}: h has {h.shape[1]} columns, not a "
+                         f"multiple of G={w.shape[0]}")
+    if not grouped and w is not None and tuple(w.shape) != (a.nnz,):
+        raise ValueError(f"{who}: w must be of shape ({a.nnz},), got "
+                         f"{tuple(w.shape)}")
     if h.device.type == "cpu":
-        return spmm_csr_grouped_plain(a, h, w_g, init)
+        plain = spmm_csr_grouped_plain if grouped else spmm_csr_plain
+        return plain(a, h, w, init)
     if h.device.type != "cuda":
-        raise ValueError(f"spmm_csr_grouped: unsupported device {h.device}")
+        raise ValueError(f"{who}: unsupported device {h.device}")
+    w_g = w if grouped else (a.val if w is None else w)[None]
     groups, c = w_g.shape[0], h.shape[1]
     out = torch.empty((a.n_rows, c), dtype=torch.float32, device=h.device)
     if a.n_rows == 0 or c == 0:
@@ -251,10 +205,11 @@ def _spmm_grouped(a: CsrMatrix, h: torch.Tensor, w_g: torch.Tensor,
         h.data_ptr(), None if init is None else init.data_ptr(),
         out.data_ptr(), a.n_rows, groups, c // groups, a.nnz,
         h.device.index or 0, torch.cuda.current_stream(h.device).cuda_stream)
-    build.check_error(lib, err, "spmm_csr_grouped launch")
+    build.check_error(lib, err, f"{who} launch")
     build.LAUNCHES[counter] += 1
-    shape = grouped_launch_shape(a.n_rows, groups, c // groups, h, init)
-    K2_SHAPES[(counter, shape.vec, shape.straddles)] += 1
+    if grouped:
+        shape = grouped_launch_shape(a.n_rows, groups, c // groups, h, init)
+        K2_SHAPES[(counter, shape.vec, shape.straddles)] += 1
     return out
 
 
@@ -278,21 +233,39 @@ def grouped_launch_shape(n_rows: int, groups: int, cg: int,
     return shape
 
 
-class _SpmmGradGrouped(torch.autograd.Function):
-    """``[A_{w_g} @ h_g]_g + init`` whose backward runs K2 on the
-    transpose."""
+class _SpmmGrad(torch.autograd.Function):
+    """K1 or K2 forward, counted under ``counter``, whose backward runs the
+    same kernel on the transpose ``a_t`` with the planes ``w_t`` in its
+    order, counted under ``counter + "_bwd"``."""
 
     @staticmethod
-    def forward(ctx, h, init, a, a_t, w_g, w_g_t):
-        ctx.a_t, ctx.w_g_t = a_t, w_g_t
-        return spmm_csr_grouped(a, h, w_g, init)
+    def forward(ctx, h, init, a, a_t, w, w_t, counter):
+        ctx.a_t, ctx.w_t, ctx.counter = a_t, w_t, counter + "_bwd"
+        return _spmm(a, h, w, init, counter)
 
     @staticmethod
     def backward(ctx, g):
-        dh = (spmm_csr_grouped_bwd(ctx.a_t, g.contiguous(), ctx.w_g_t)
+        dh = (_spmm(ctx.a_t, g.contiguous(), ctx.w_t, None, ctx.counter)
               if ctx.needs_input_grad[0] else None)
         dinit = g if ctx.needs_input_grad[1] else None
-        return dh, dinit, None, None, None, None
+        return dh, dinit, None, None, None, None, None
+
+
+def _check_transpose(a: CsrMatrix, a_t: CsrMatrix, who: str) -> None:
+    if (a_t.n_rows, a_t.n_cols, a_t.nnz) != (a.n_cols, a.n_rows, a.nnz):
+        raise ValueError(f"{who}: a_t is not shaped as the transpose of a")
+
+
+def spmm_grad(a: CsrMatrix, a_t: CsrMatrix, h: torch.Tensor,
+              w: Optional[torch.Tensor] = None,
+              w_t: Optional[torch.Tensor] = None,
+              init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable ``A_w @ h (+ init)``: forward through ``a``,
+    backward ``dh = A_wᵀ g`` through ``a_t`` (the CSR of Aᵀ) with ``w_t``,
+    the same weights in ``a_t``'s order (``None``: ``a_t.val``), and
+    ``d(init) = g``."""
+    _check_transpose(a, a_t, "spmm_grad")
+    return _SpmmGrad.apply(h.contiguous(), init, a, a_t, w, w_t, "spmm_csr")
 
 
 def spmm_grad_grouped(a: CsrMatrix, a_t: CsrMatrix, h: torch.Tensor,
@@ -302,10 +275,9 @@ def spmm_grad_grouped(a: CsrMatrix, a_t: CsrMatrix, h: torch.Tensor,
     backward ``dH = [A_{w_g}ᵀ g_g]_g`` through ``a_t`` with ``w_g_t``, the
     same planes in ``a_t``'s order, and ``d(init) = g``; nothing flows to
     the planes (``make_spmm_grad_grouped``)."""
-    if (a_t.n_rows, a_t.n_cols, a_t.nnz) != (a.n_cols, a.n_rows, a.nnz):
-        raise ValueError("spmm_grad_grouped: a_t is not shaped as the "
-                         "transpose of a")
+    _check_transpose(a, a_t, "spmm_grad_grouped")
     if w_g_t is None or tuple(w_g_t.shape) != tuple(w_g.shape):
         raise ValueError("spmm_grad_grouped: w_g_t must hold the same G "
                          "planes as w_g, in a_t's order")
-    return _SpmmGradGrouped.apply(h.contiguous(), init, a, a_t, w_g, w_g_t)
+    return _SpmmGrad.apply(h.contiguous(), init, a, a_t, w_g, w_g_t,
+                           "spmm_grouped")

@@ -22,7 +22,8 @@ slice s and owns rows ``[d·S, (d+1)·S)``. Each step:
 host); ``build_hier_csr`` is the counterpart of ``build_hier_pair_chunks``
 (``:303-342``): per rank and per PRESENT part the CSR operator and its
 transpose (a part is absent where its axis has one rank: no ici part at
-I = 1, no dcn part at D = 1). The ``pallas`` arm chains K1 over the
+I = 1, no dcn part at D = 1). The step is ``sharded.RowSharded``'s, over
+these parts and this exchange: the ``pallas`` arm chains K1 over the
 present parts through ``init``, (1-α) folded into the weights, as
 ``hier.py:531-556`` does; in train mode part p's planes come from
 ``fold_in(fold_in(keys[k], rank), p')`` with p' its position among the
@@ -43,14 +44,11 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ppnp_tpu_torch.kernels.masks import edge_masks
-from ppnp_tpu_torch.ops import prng
-from ppnp_tpu_torch.ops.dropout import dropout_grouped
 from ppnp_tpu_torch.ops.sparse import CsrMatrix, _round_up, csr_transpose
 from ppnp_tpu_torch.parallel.mesh import HierMesh
-from ppnp_tpu_torch.parallel.partition import _part
+from ppnp_tpu_torch.parallel.partition import _group_edges, _part
 from ppnp_tpu_torch.parallel.sharded import (RowSharded, _AllGatherRows,
-                                             _AllToAll, _k1, _segsum)
+                                             _AllToAll)
 
 __all__ = ["HierShardedGraph", "HierShardCsr", "build_hier_sharded_graph",
            "build_hier_csr", "HierShardedPowerIteration"]
@@ -109,31 +107,10 @@ def build_hier_sharded_graph(
     slice-level deduplicated DCN send lists (``hier.py:105-300``)."""
     D, I = int(n_slices), int(per_slice)
     n_shards = D * I
-    csr = a_hat.tocsr()
-    if csr is a_hat:
-        csr = csr.copy()  # sum_duplicates would change the caller's matrix
-    csr.sum_duplicates()
+    csr, S, dst_g, src_g, w_g, group = _group_edges(a_hat, n_shards,
+                                                    row_multiple)
     n = csr.shape[0]
-    S = _round_up(-(-n // n_shards), row_multiple)
     n_pad = S * n_shards
-
-    coo = csr.tocoo()
-    dst_g = coo.row.astype(np.int64)
-    src_g = coo.col.astype(np.int64)
-    w_g = coo.data.astype(np.float32)
-    owner_dst = dst_g // S
-    owner_src = src_g // S
-
-    # edges grouped once by (owner_dst, owner_src); the stable sort keeps
-    # CSR (dst, src) order inside every group
-    pair_key = owner_dst * n_shards + owner_src
-    grouped = np.argsort(pair_key, kind="stable")
-    bounds = np.searchsorted(pair_key[grouped],
-                             np.arange(n_shards * n_shards + 1))
-
-    def group(d, o):  # edge indices of (owner_dst=d, owner_src=o)
-        k = d * n_shards + o
-        return grouped[bounds[k]:bounds[k + 1]]
 
     empty = np.empty(0, dtype=np.int64)
 
@@ -181,7 +158,7 @@ def build_hier_sharded_graph(
         s_d = d // I
         n_int = len(group(d, d))
         n_slice = sum(len(group(d, s_d * I + j)) for j in range(I))
-        n_all = int(bounds[(d + 1) * n_shards] - bounds[d * n_shards])
+        n_all = sum(len(group(d, o)) for o in range(n_shards))
         max_int = max(max_int, n_int)
         max_ici = max(max_ici, n_slice - n_int)
         max_dcn = max(max_dcn, n_all - n_slice)
@@ -318,18 +295,17 @@ def build_hier_csr(hg: HierShardedGraph, *, device,
 
 class HierShardedPowerIteration(RowSharded):
     """K hierarchically sharded steps of H ← (1−α)ÂH + αH⁰ on this rank's
-    rows (module docstring). ``graph`` is the whole plan, of which this
-    rank keeps its own slice on ``mesh.device``; ``csr`` is this rank's
-    ``HierShardCsr``, needed by the ``pallas`` arm."""
+    rows (module docstring; the step is ``RowSharded``'s). ``graph`` is
+    the whole plan, of which this rank keeps its own slice on
+    ``mesh.device``; ``csr`` is this rank's ``HierShardCsr``, needed by
+    the ``pallas`` arm."""
+
+    what = "hierarchical propagation"
 
     def __init__(self, *, graph: HierShardedGraph, mesh: HierMesh,
                  csr: Optional[HierShardCsr] = None, alpha: float = 0.1,
                  niter: int = 10, drop_prob: float = 0.5,
                  backend: str = "xla"):
-        super().__init__()
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"hierarchical propagation has the 'xla' and "
-                             f"'pallas' arms, not {backend!r}")
         if backend == "pallas" and csr is None:
             raise ValueError("backend='pallas' requires this rank's "
                              "operators (hier.build_hier_csr)")
@@ -338,37 +314,22 @@ class HierShardedPowerIteration(RowSharded):
             raise ValueError(
                 f"a {graph.n_slices}x{graph.per_slice} plan on a "
                 f"{mesh.n_slices}x{mesh.per_slice} mesh")
-        self.graph, self.mesh, self.csr = graph, mesh, csr
-        self.alpha, self.niter = float(alpha), int(niter)
-        self.drop_prob = float(drop_prob)
-        self.backend = backend
-        self.present = tuple(spec is not None for spec in _part_specs(graph))
-        me, dev = mesh.rank, mesh.device
+        super().__init__(
+            graph=graph, mesh=mesh, csr=csr,
+            ops=None if csr is None else tuple(
+                None if a is None else (a, a_t)
+                for a, a_t in zip(csr.parts, csr.parts_t)),
+            specs=_part_specs(graph), alpha=alpha, niter=niter,
+            drop_prob=drop_prob, backend=backend)
+        self.send_ici = self._rank_slice(graph.send_idx_ici,
+                                         torch.int64).view(-1)
+        self.send_dcn = self._rank_slice(graph.send_idx_dcn,
+                                         torch.int64).view(-1)
 
-        def rank_slice(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a[me])).to(
-                dtype).to(dev)
-
-        self.dst = rank_slice(graph.dst, torch.int64)
-        self.src = rank_slice(graph.src, torch.int64)
-        self.w = rank_slice(graph.w, torch.float32)
-        self.send_ici = rank_slice(graph.send_idx_ici, torch.int64).view(-1)
-        self.send_dcn = rank_slice(graph.send_idx_dcn, torch.int64).view(-1)
-        self.w_scaled = None
-        if csr is not None:
-            # (1-α)·val of each present part in both layouts: every eval
-            # step's weights
-            self.w_scaled = tuple(
-                None if m is None else
-                (((1.0 - self.alpha) * m.val).contiguous(),
-                 None if m_t is None
-                 else ((1.0 - self.alpha) * m_t.val).contiguous())
-                for m, m_t in zip(csr.parts, csr.parts_t))
-
-    def _exchange(self, h: torch.Tensor):
-        """(recv_ici (I·B_i, c), recv_dcn (I·D·B_d, c)), None where a level
-        is absent: level 1 over the slice, level 2 over the position's
-        group then fanned out over the slice."""
+    def _tables(self, h: torch.Tensor):
+        """(H_local, recv_ici (I·B_i, c), recv_dcn (I·D·B_d, c)), None
+        where a level is absent: level 1 over the slice, level 2 over the
+        position's group then fanned out over the slice."""
         mesh = self.mesh
         recv_ici = recv_dcn = None
         if self.present[1]:
@@ -378,87 +339,4 @@ class HierShardedPowerIteration(RowSharded):
             recv = _AllToAll.apply(h.index_select(0, self.send_dcn),
                                    mesh.dcn)
             recv_dcn = _AllGatherRows.apply(recv, mesh.ici, mesh.per_slice)
-        return recv_ici, recv_dcn
-
-    def step_weights(self, keys=None):
-        """The weights of every step. ``xla``: (K, E) slot-keyed planes
-        ``dropout(fold_in(keys[k], rank), w)``, or ``w`` as one plane
-        without ``keys``. ``pallas``: per part (None where absent) the
-        (forward, transpose) planes of ``scale·(val/keep)`` from
-        ``fold_in(fold_in(keys[k], rank), p')``, p' the part's position
-        among the present parts, or (1-α)·val as one plane each."""
-        me = self.mesh.rank
-        if self.backend == "xla":
-            if keys is None:
-                return self.w[None]
-            return dropout_grouped(
-                np.stack([prng.fold_in(k, me) for k in keys]), self.w,
-                self.drop_prob, shared=True)
-        csr = self.csr
-        if keys is None:
-            return tuple(None if ws is None else
-                         tuple(None if w is None else w[None] for w in ws)
-                         for ws in self.w_scaled)
-        k_me = [prng.fold_in(k, me) for k in keys]
-        out, nxt = [], 0
-        for a, a_t in zip(csr.parts, csr.parts_t):
-            if a is None:
-                out.append(None)
-                continue
-            out.append(edge_masks(
-                np.stack([prng.fold_in(k, nxt) for k in k_me]), a, a_t,
-                keep=1.0 - self.drop_prob, scale=1.0 - self.alpha))
-            nxt += 1
-        return tuple(out)
-
-    def propagate(self, h0: torch.Tensor, *, key=None,
-                  train: bool = False) -> torch.Tensor:
-        """K steps over this rank's (S, c) rows of H⁰; in train mode with
-        fresh masks per step from ``key`` (a (2,) uint32 host key)."""
-        g = self.graph
-        if tuple(h0.shape[:1]) != (g.shard_rows,):
-            raise ValueError(f"hierarchical propagation: this rank holds "
-                             f"{g.shard_rows} rows, got {h0.shape[0]}")
-        apply_drop = bool(train and self.drop_prob > 0.0 and key is not None)
-        keys = prng.split(key, self.niter) if apply_drop else None
-        ws = self.step_weights(keys)
-        if self.backend == "pallas":
-            return self._propagate_pallas(h0, ws, apply_drop)
-        s, ip = g.shard_rows, g.interior_pad
-        ip2 = ip + g.ici_pad
-        off_dcn = s + g.per_slice * g.b_ici
-        dst, src = self.dst, self.src
-        alpha_h0 = self.alpha * h0
-        h = h0
-        for k in range(self.niter):
-            w = ws[k if apply_drop else 0]
-            recv_ici, recv_dcn = self._exchange(h)
-            out = _segsum(h.index_select(0, src[:ip]), w[:ip], dst[:ip], s)
-            if recv_ici is not None:
-                out = out + _segsum(
-                    recv_ici.index_select(0, src[ip:ip2] - s), w[ip:ip2],
-                    dst[ip:ip2], s)
-            if recv_dcn is not None:
-                out = out + _segsum(
-                    recv_dcn.index_select(0, src[ip2:] - off_dcn),
-                    w[ip2:], dst[ip2:], s)
-            h = (1.0 - self.alpha) * out + alpha_h0
-        return h
-
-    def _propagate_pallas(self, h0: torch.Tensor, ws,
-                          apply_drop: bool) -> torch.Tensor:
-        csr = self.csr
-        init = self.alpha * h0  # α·H⁰_loc seeds the interior part
-        h = h0.contiguous()
-        for k in range(self.niter):
-            j = k if apply_drop else 0
-            tables = (h, *self._exchange(h))
-            out = init
-            for a, a_t, table, w in zip(csr.parts, csr.parts_t, tables, ws):
-                if a is None:
-                    continue
-                p, p_t = w
-                out = _k1(a, a_t, table, p[j],
-                          None if p_t is None else p_t[j], out)
-            h = out
-        return h
+        return h, recv_ici, recv_dcn

@@ -65,36 +65,42 @@ class ShardedGraph:
         return self.dst.shape[1]
 
 
+def _group_edges(a_hat: sp.spmatrix, n_shards: int, row_multiple: int):
+    """The prelude both plan builders share (this module's and
+    ``hier.build_hier_sharded_graph``): Â in CSR with its duplicates
+    summed, the rows S a shard owns, every edge's global dst, src and w
+    in CSR order, and ``group(d, o)``, the edge indices of (owner_dst=d,
+    owner_src=o), grouped once by a stable sort so that CSR (dst, src)
+    order holds inside every group."""
+    csr = a_hat.tocsr()
+    if csr is a_hat:
+        csr = csr.copy()  # sum_duplicates would change the caller's matrix
+    csr.sum_duplicates()
+    shard_rows = _round_up(-(-csr.shape[0] // n_shards), row_multiple)
+    coo = csr.tocoo()
+    dst = coo.row.astype(np.int64)
+    src = coo.col.astype(np.int64)
+    pair_key = (dst // shard_rows) * n_shards + src // shard_rows
+    grouped = np.argsort(pair_key, kind="stable")
+    bounds = np.searchsorted(pair_key[grouped],
+                             np.arange(n_shards * n_shards + 1))
+
+    def group(d, o):
+        k = d * n_shards + o
+        return grouped[bounds[k]:bounds[k + 1]]
+
+    return csr, shard_rows, dst, src, coo.data.astype(np.float32), group
+
+
 def build_sharded_graph(a_hat: sp.spmatrix, n_shards: int,
                         row_multiple: int = 8,
                         edge_pad_multiple: int = 512,
                         boundary_pad_multiple: int = 8) -> ShardedGraph:
     """Partition Â by destination row into ``n_shards`` shards."""
-    csr = a_hat.tocsr()
-    if csr is a_hat:
-        csr = csr.copy()  # sum_duplicates would change the caller's matrix
-    csr.sum_duplicates()
+    csr, shard_rows, dst_g, src_g, w_g, group = _group_edges(
+        a_hat, n_shards, row_multiple)
     n = csr.shape[0]
-    shard_rows = _round_up(-(-n // n_shards), row_multiple)
     n_pad = shard_rows * n_shards
-
-    coo = csr.tocoo()
-    dst_g = coo.row.astype(np.int64)
-    src_g = coo.col.astype(np.int64)
-    w_g = coo.data.astype(np.float32)
-    owner_dst = dst_g // shard_rows
-    owner_src = src_g // shard_rows
-
-    # edges grouped once by (owner_dst, owner_src); the stable sort keeps
-    # CSR (dst, src) order inside every group
-    pair_key = owner_dst * n_shards + owner_src
-    grouped = np.argsort(pair_key, kind="stable")
-    bounds = np.searchsorted(pair_key[grouped],
-                             np.arange(n_shards * n_shards + 1))
-
-    def group(d, o):  # edge indices of (owner_dst=d, owner_src=o)
-        k = d * n_shards + o
-        return grouped[bounds[k]:bounds[k + 1]]
 
     # send_lists[(o, d)]: sorted unique global rows owned by o that d needs
     send_lists: Dict[Tuple[int, int], np.ndarray] = {}
@@ -111,9 +117,9 @@ def build_sharded_graph(a_hat: sp.spmatrix, n_shards: int,
     max_int = max_bnd = 1
     for d in range(n_shards):
         n_int = len(group(d, d))
-        n_all = bounds[(d + 1) * n_shards] - bounds[d * n_shards]
+        n_all = sum(len(group(d, o)) for o in range(n_shards))
         max_int = max(max_int, n_int)
-        max_bnd = max(max_bnd, int(n_all) - n_int)
+        max_bnd = max(max_bnd, n_all - n_int)
     interior_pad = _round_up(max_int, edge_pad_multiple)
     boundary_pad = _round_up(max_bnd, edge_pad_multiple)
     edges_pad = interior_pad + boundary_pad
@@ -174,6 +180,14 @@ class ShardCsr:
     boundary_t: Optional[CsrMatrix] = None
 
 
+def _part_specs(sg: ShardedGraph):
+    """(edge slice, table rows, column offset) of the interior and the
+    boundary part."""
+    ip = sg.interior_pad
+    return ((slice(None, ip), sg.shard_rows, 0),
+            (slice(ip, None), sg.n_shards * sg.boundary, sg.shard_rows))
+
+
 def _part(sg: ShardedGraph, d: int, sl: slice, n_cols: int, col_off: int,
           device) -> CsrMatrix:
     """Shard d's operator over the edge range ``sl`` (its real slots,
@@ -191,12 +205,10 @@ def build_sharded_csr(sg: ShardedGraph, *, device,
                       with_adjoint: bool = True) -> List[ShardCsr]:
     """The local operators of ``shards`` (default: every shard), split at
     ``interior_pad`` as the JAX packings are, on ``device``."""
-    ip = sg.interior_pad
     out = []
     for d in (range(sg.n_shards) if shards is None else shards):
-        interior = _part(sg, d, slice(None, ip), sg.shard_rows, 0, device)
-        boundary = _part(sg, d, slice(ip, None), sg.n_shards * sg.boundary,
-                         sg.shard_rows, device)
+        interior, boundary = (_part(sg, d, *spec, device)
+                              for spec in _part_specs(sg))
         out.append(ShardCsr(
             interior, boundary,
             csr_transpose(interior) if with_adjoint else None,

@@ -6,7 +6,9 @@ power-iteration step is (1) the boundary-row exchange, an
 H), then (2) the local SpMM over the shard's edges, split at the plan's
 ``interior_pad`` into the interior edges, which read only local rows,
 and the boundary edges, which read the received rows, then (3) the
-α-mix with the local rows of H⁰. Two arms:
+α-mix with the local rows of H⁰. ``RowSharded`` holds that step for
+both plans, this module's and ``hier.py``'s; ``ShardedPowerIteration``
+adds its checks, its two parts and its exchange. Two arms:
 
 - ``xla``: gather + ``index_add_`` over the padded per-shard edge arrays,
   with either exchange; in train mode the step mask of step k is the
@@ -59,7 +61,8 @@ from ppnp_tpu_torch.kernels.spmm import spmm_csr, spmm_grad
 from ppnp_tpu_torch.ops import prng
 from ppnp_tpu_torch.ops.dropout import dropout_grouped
 from ppnp_tpu_torch.parallel.mesh import Mesh
-from ppnp_tpu_torch.parallel.partition import ShardCsr, ShardedGraph
+from ppnp_tpu_torch.parallel.partition import (ShardCsr, ShardedGraph,
+                                               _part_specs)
 
 __all__ = ["RowSharded", "ShardedPowerIteration", "all_to_all",
            "all_gather_rows", "gather_replicated"]
@@ -85,16 +88,22 @@ class _AllToAll(torch.autograd.Function):
         return out, None
 
 
-class _AllGatherRows(torch.autograd.Function):
+def _all_gather(x: torch.Tensor, group, world: int) -> torch.Tensor:
     """Every rank's rows, concatenated in rank order (a tiled
-    ``all_gather`` along dim 0)."""
+    ``all_gather`` along dim 0): the forward of both gathers below."""
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """The tiled ``all_gather``; its adjoint sums every rank's cotangent
+    of this rank's rows."""
 
     @staticmethod
     def forward(ctx, x, group, world):
         ctx.group, ctx.world = group, world
-        parts = [torch.empty_like(x) for _ in range(world)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts)
+        return _all_gather(x, group, world)
 
     @staticmethod
     def backward(ctx, g):
@@ -111,9 +120,7 @@ class _GatherReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, world, rank):
         ctx.world, ctx.rank = world, rank
-        parts = [torch.empty_like(x) for _ in range(world)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts)
+        return _all_gather(x, group, world)
 
     @staticmethod
     def backward(ctx, g):
@@ -153,11 +160,61 @@ def _k1(a, a_t, h, w, w_t, init):
 
 
 class RowSharded(nn.Module):
-    """What a row-sharded propagator offers its callers: this rank holds
-    rows ``row_range`` of H⁰ and of the result, ``n_rows`` in all over
-    the ranks of ``mesh``; ``forward(h, idx)`` gathers the rows of
-    ``idx`` to every rank. Subclasses set ``graph`` (with ``shard_rows``
-    and ``n_pad``) and ``mesh``, and define ``propagate``."""
+    """What a row-sharded propagator offers its callers, and the step
+    that the flat and the hierarchical plan share.
+
+    This rank holds rows ``row_range`` of H⁰ and of the result,
+    ``n_rows`` in all over the ranks of ``mesh``; ``forward(h, idx)``
+    gathers the rows of ``idx`` to every rank.
+
+    The step runs over the plan's parts in order: the interior, whose
+    edges read this rank's own rows, then the parts whose edges read
+    received rows (flat: the boundary; hierarchical: ici and dcn). An
+    absent part is None throughout. A subclass checks its arguments and
+    passes its plan, its parts' ``specs`` (edge slice, table rows,
+    column offset) and their operators ``ops`` ((forward, transpose) CSR
+    pairs, None without this rank's operators); it defines
+    ``_tables(h)``, the exchange, which returns every part's gather
+    table in order, ``h`` itself first.
+    """
+
+    what = "sharded propagation"  # how errors name the propagator
+
+    def __init__(self, *, graph, mesh, csr, ops, specs, alpha: float,
+                 niter: int, drop_prob: float, backend: str):
+        super().__init__()
+        if backend not in ("xla", "pallas"):
+            raise ValueError(f"{self.what} has the 'xla' and 'pallas' "
+                             f"arms, not {backend!r}")
+        self.graph, self.mesh, self.csr = graph, mesh, csr
+        self.alpha, self.niter = float(alpha), int(niter)
+        self.drop_prob = float(drop_prob)
+        self.backend = backend
+        self.present = tuple(spec is not None for spec in specs)
+        self.dst = self._rank_slice(graph.dst, torch.int64)
+        self.src = self._rank_slice(graph.src, torch.int64)
+        self.w = self._rank_slice(graph.w, torch.float32)
+        # xla arm, per part: (edge slice, index into its table, offset of
+        # the table's rows in that index)
+        self.part_edges = tuple(None if spec is None
+                                else (spec[0], self.src, spec[2])
+                                for spec in specs)
+        self.part_ops = ops
+        self.w_scaled = None
+        if ops is not None:
+            # (1-α)·val of each present part in both layouts: every eval
+            # step's weights
+            self.w_scaled = tuple(
+                None if op is None else
+                tuple(None if m is None
+                      else ((1.0 - self.alpha) * m.val).contiguous()
+                      for m in op)
+                for op in ops)
+
+    def _rank_slice(self, a: np.ndarray, dtype) -> torch.Tensor:
+        """This rank's slice of a plan array, on its device."""
+        return torch.from_numpy(np.ascontiguousarray(a[self.mesh.rank])).to(
+            dtype).to(self.mesh.device)
 
     @property
     def n_rows(self) -> int:
@@ -187,6 +244,87 @@ class RowSharded(nn.Module):
             h = gather_replicated(h, self.mesh).index_select(0, idx)
         return h
 
+    def step_weights(self, keys=None):
+        """The weights of every step. ``xla``: (K, E) slot-keyed planes
+        of this rank's padded edge weights, ``dropout(fold_in(keys[k],
+        rank), w)``, or ``w`` itself as one plane without ``keys``.
+        ``pallas``: per part (None where absent) the (forward, transpose)
+        planes of ``scale·(val/keep)`` from ``fold_in(fold_in(keys[k],
+        rank), p')``, p' the part's position among the present parts, or
+        (1-α)·val as one plane each."""
+        me = self.mesh.rank
+        if self.backend == "xla":
+            if keys is None:
+                return self.w[None]
+            # decorrelate shards: each owns a disjoint edge set
+            return dropout_grouped(
+                np.stack([prng.fold_in(k, me) for k in keys]), self.w,
+                self.drop_prob, shared=True)
+        if keys is None:
+            return tuple(None if ws is None else
+                         tuple(None if w is None else w[None] for w in ws)
+                         for ws in self.w_scaled)
+        k_me = [prng.fold_in(k, me) for k in keys]
+        out, p = [], 0
+        for op in self.part_ops:
+            if op is None:
+                out.append(None)
+                continue
+            # decorrelate the parts: their per-matrix ids overlap
+            out.append(edge_masks(
+                np.stack([prng.fold_in(k, p) for k in k_me]), *op,
+                keep=1.0 - self.drop_prob, scale=1.0 - self.alpha))
+            p += 1
+        return tuple(out)
+
+    def propagate(self, h0: torch.Tensor, *, key=None,
+                  train: bool = False) -> torch.Tensor:
+        """K steps over this rank's (S, c) rows of H⁰; in train mode with
+        fresh masks per step from ``key`` (a (2,) uint32 host key)."""
+        g = self.graph
+        if tuple(h0.shape[:1]) != (g.shard_rows,):
+            raise ValueError(f"{self.what}: this rank holds "
+                             f"{g.shard_rows} rows, got {h0.shape[0]}")
+        apply_drop = bool(train and self.drop_prob > 0.0 and key is not None)
+        keys = prng.split(key, self.niter) if apply_drop else None
+        ws = self.step_weights(keys)
+        if self.backend == "pallas":
+            return self._propagate_pallas(h0, ws, apply_drop)
+        s = g.shard_rows
+        alpha_h0 = self.alpha * h0
+        h = h0
+        for k in range(self.niter):
+            w = ws[k if apply_drop else 0]
+            out = None
+            for part, table in zip(self.part_edges, self._tables(h)):
+                if part is None:
+                    continue
+                sl, idx, off = part
+                idx = idx[sl] - off if off else idx[sl]
+                seg = _segsum(table.index_select(0, idx), w[sl],
+                              self.dst[sl], s)
+                out = seg if out is None else out + seg
+            h = (1.0 - self.alpha) * out + alpha_h0
+        return h
+
+    def _propagate_pallas(self, h0: torch.Tensor, ws,
+                          apply_drop: bool) -> torch.Tensor:
+        """K1 over the present parts chained through ``init``, seeded
+        with α·H⁰_loc, after the exchange of every step."""
+        init = self.alpha * h0
+        h = h0.contiguous()
+        for k in range(self.niter):
+            j = k if apply_drop else 0
+            out = init
+            for op, w, table in zip(self.part_ops, ws, self._tables(h)):
+                if op is None:
+                    continue
+                (a, a_t), (p, p_t) = op, w
+                out = _k1(a, a_t, table, p[j],
+                          None if p_t is None else p_t[j], out)
+            h = out
+        return h
+
 
 class ShardedPowerIteration(RowSharded):
     """K sharded steps of H ← (1-α)ÂH + αH⁰ with a boundary exchange, on
@@ -202,10 +340,6 @@ class ShardedPowerIteration(RowSharded):
                  csr: Optional[ShardCsr] = None, alpha: float = 0.1,
                  niter: int = 10, drop_prob: float = 0.5,
                  exchange: str = "alltoall", backend: str = "xla"):
-        super().__init__()
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"sharded propagation has the 'xla' and "
-                             f"'pallas' arms, not {backend!r}")
         if exchange not in EXCHANGES:
             raise ValueError(f"unknown exchange {exchange!r}")
         if backend == "pallas" and exchange != "alltoall":
@@ -217,30 +351,20 @@ class ShardedPowerIteration(RowSharded):
         if graph.n_shards != mesh.world_size:
             raise ValueError(f"a plan of {graph.n_shards} shards on a mesh "
                              f"of {mesh.world_size} ranks")
-        self.graph, self.mesh, self.csr = graph, mesh, csr
-        self.alpha, self.niter = float(alpha), int(niter)
-        self.drop_prob = float(drop_prob)
-        self.exchange, self.backend = exchange, backend
-        me, dev = mesh.rank, mesh.device
-
-        def rank_slice(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a[me])).to(
-                dtype).to(dev)
-
-        self.dst = rank_slice(graph.dst, torch.int64)
-        self.src = rank_slice(graph.src, torch.int64)
-        self.src_global = rank_slice(graph.src_global, torch.int64)
-        self.w = rank_slice(graph.w, torch.float32)
-        self.send_idx = rank_slice(graph.send_idx, torch.int64).view(-1)
-        self.w_scaled = None
-        if csr is not None:
-            # (1-α)·val of each part in both layouts: every eval step's
-            # weights
-            self.w_scaled = tuple(
-                None if m is None else ((1.0 - self.alpha) * m.val)
-                .contiguous()
-                for m in (csr.interior, csr.interior_t, csr.boundary,
-                          csr.boundary_t))
+        super().__init__(
+            graph=graph, mesh=mesh, csr=csr,
+            ops=None if csr is None else ((csr.interior, csr.interior_t),
+                                          (csr.boundary, csr.boundary_t)),
+            specs=_part_specs(graph), alpha=alpha, niter=niter,
+            drop_prob=drop_prob, backend=backend)
+        self.exchange = exchange
+        self.src_global = self._rank_slice(graph.src_global, torch.int64)
+        self.send_idx = self._rank_slice(graph.send_idx, torch.int64).view(-1)
+        if exchange == "allgather":
+            # the boundary edges read the gathered H by global row
+            boundary = self.part_edges[1][0]
+            self.part_edges = (self.part_edges[0],
+                               (boundary, self.src_global, 0))
 
     def _exchange(self, h: torch.Tensor) -> torch.Tensor:
         """The received rows, (n_shards·B, c): shard o's block at rows
@@ -250,78 +374,9 @@ class ShardedPowerIteration(RowSharded):
         return all_to_all(send, self.mesh).view(g.n_shards * g.boundary,
                                                 h.shape[1])
 
-    def step_weights(self, keys=None):
-        """The weights of every step. ``xla``: (K, E) slot-keyed planes
-        of this rank's padded edge weights, ``dropout(fold_in(keys[k],
-        rank), w)``, or ``w`` itself as one plane without ``keys``.
-        ``pallas``: ((interior, interior_t), (boundary, boundary_t))
-        planes of ``scale·(val/keep)`` from ``fold_in(fold_in(keys[k],
-        rank), 0 or 1)``, or (1-α)·val as one plane each."""
-        me = self.mesh.rank
-        if self.backend == "xla":
-            if keys is None:
-                return self.w[None]
-            # decorrelate shards: each owns a disjoint edge set
-            return dropout_grouped(
-                np.stack([prng.fold_in(k, me) for k in keys]), self.w,
-                self.drop_prob, shared=True)
-        csr = self.csr
-        if keys is None:
-            return tuple((None if w is None else w[None],
-                          None if w_t is None else w_t[None])
-                         for w, w_t in (self.w_scaled[:2],
-                                        self.w_scaled[2:]))
-        k_me = [prng.fold_in(k, me) for k in keys]
-        # decorrelate the two parts: their per-matrix ids overlap
-        return tuple(
-            edge_masks(np.stack([prng.fold_in(k, p) for k in k_me]), a,
-                       a_t, keep=1.0 - self.drop_prob,
-                       scale=1.0 - self.alpha)
-            for p, (a, a_t) in enumerate(((csr.interior, csr.interior_t),
-                                          (csr.boundary, csr.boundary_t))))
-
-    def propagate(self, h0: torch.Tensor, *, key=None,
-                  train: bool = False) -> torch.Tensor:
-        """K steps over this rank's (S, c) rows of H⁰; in train mode with
-        fresh masks per step from ``key`` (a (2,) uint32 host key)."""
-        g = self.graph
-        if tuple(h0.shape[:1]) != (g.shard_rows,):
-            raise ValueError(f"sharded propagation: this rank holds "
-                             f"{g.shard_rows} rows, got {h0.shape[0]}")
-        apply_drop = bool(train and self.drop_prob > 0.0 and key is not None)
-        keys = prng.split(key, self.niter) if apply_drop else None
-        ws = self.step_weights(keys)
-        if self.backend == "pallas":
-            return self._propagate_pallas(h0, ws, apply_drop)
-        s, ip = g.shard_rows, g.interior_pad
-        dst_i, dst_b = self.dst[:ip], self.dst[ip:]
-        src_i = self.src[:ip]
-        alpha_h0 = self.alpha * h0
-        h = h0
-        for k in range(self.niter):
-            w = ws[k if apply_drop else 0]
-            out = _segsum(h.index_select(0, src_i), w[:ip], dst_i, s)
-            if self.exchange == "allgather":
-                table = all_gather_rows(h, self.mesh)
-                rows = table.index_select(0, self.src_global[ip:])
-            else:
-                rows = self._exchange(h).index_select(0,
-                                                      self.src[ip:] - s)
-            out = out + _segsum(rows, w[ip:], dst_b, s)
-            h = (1.0 - self.alpha) * out + alpha_h0
-        return h
-
-    def _propagate_pallas(self, h0: torch.Tensor, ws,
-                          apply_drop: bool) -> torch.Tensor:
-        csr = self.csr
-        (p_i, p_i_t), (p_b, p_b_t) = ws
-        init = self.alpha * h0  # α·H⁰_loc seeds the interior step
-        h = h0.contiguous()
-        for k in range(self.niter):
-            j = k if apply_drop else 0
-            recv = self._exchange(h)
-            out = _k1(csr.interior, csr.interior_t, h, p_i[j],
-                      None if p_i_t is None else p_i_t[j], init)
-            h = _k1(csr.boundary, csr.boundary_t, recv, p_b[j],
-                    None if p_b_t is None else p_b_t[j], out)
-        return h
+    def _tables(self, h: torch.Tensor):
+        """(H_local, the rows the boundary edges read): the received rows,
+        or with ``allgather`` every rank's H."""
+        if self.exchange == "allgather":
+            return h, all_gather_rows(h, self.mesh)
+        return h, self._exchange(h)
